@@ -8,9 +8,12 @@ device, phase by phase, one JSON line per phase:
 
   device     the card (nvidia-smi name and power limit), TF32 off, the
              kernels built from csrc/ with nvcc, and the build time
-  kernels    each attention kernel at the main path's shapes, against its
-             plain torch version on the same inputs (forward and both
-             gradients), with times and the memory/compute bound
+  kernels    each attention kernel at the main path's shapes and at shapes
+             that reach its other routes (H % 4 != 0, a long row, a
+             misaligned el'), against its plain torch version on the same
+             inputs (out, the residual a, both gradients, and the
+             inference forward under no_grad), with times and the
+             memory/compute bound
   reference  a tiny stream trained and evaluated by the port on the GPU
              and on the CPU (plain versions) from the same weights
   train      Engine on the tgbl-wiki-shaped synthetic stream with
@@ -43,29 +46,38 @@ FWD_TOL = 1e-5                # |kernel - plain| <= tol + tol·|plain|
 GRAD_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM
 FP32_OPS_PER_S = 67e12        # H100 SXM, outside the tensor cores
-L2_FLUSH_BYTES = 128 << 20    # > the 50 MB L2
+L2_FLUSH_BYTES = 128 << 20    # > the 50 MB L2; read, not written (see _time_ms)
+SPIN_CYCLES = 2_000_000       # about 1 ms of device time before each launch
 TIMED_RUNS = 30
 
 # per (r, k, h) element: fwd = add, leaky (cmp, mul), running max/sum
 # (cmp, exp, add), exp, div, mul, add; bwd = two passes of mul/add plus
 # softmax and leaky backward.  Dropout adds one multiply per use.
-OPS_PER_ELEM = {"attention_fwd": 10, "attention_fwd_drop": 11,
-                "attention_bwd": 12, "attention_bwd_drop": 14}
+OPS_PER_ELEM = {"attention_fwd": 10, "attention_fwd_infer": 10,
+                "attention_fwd_drop": 11, "attention_bwd": 12,
+                "attention_bwd_drop": 14}
 REPLACES = {
     "attention_fwd": "tgb_tgn_dgl_tpu/ops/pallas_attention.py:52",
+    "attention_fwd_infer": "tgb_tgn_dgl_tpu/ops/pallas_attention.py:52",
     "attention_bwd": "tgb_tgn_dgl_tpu/ops/pallas_attention.py:68",
     "attention_fwd_drop": "tgb_tgn_dgl_tpu/ops/pallas_attention.py:88",
     "attention_bwd_drop": "tgb_tgn_dgl_tpu/ops/pallas_attention.py:112",
 }
 SOURCE = "tgb_tgn_dgl_tpu_torch/csrc/attention.cu"
-# (label, R, Kp, H, fully masked rows as a fraction of R)
+# (label, R, Kp, H, fully masked rows as a fraction of R).  odd_h takes
+# the forward's float route (H % 4 != 0), long_kp its chunked route (a row
+# of more than 512 floats), misaligned both (el' starts 4 bytes past a
+# 16-byte boundary)
 SHAPES = [("train", 6144, 43, 8, 0.02), ("eval", 40960, 43, 8, 0.02),
-          ("masked", 512, 43, 8, 0.5), ("odd_kp", 1000, 17, 8, 0.0)]
+          ("masked", 512, 43, 8, 0.5), ("odd_kp", 1000, 17, 8, 0.0),
+          ("odd_h", 999, 17, 3, 0.1), ("long_kp", 512, 200, 8, 0.1),
+          ("misaligned", 1000, 200, 8, 0.1)]
 # the shape each kernel's record in the table is timed at: the eval
-# chunk for the forward (every eval chunk runs it), the train batch for
+# chunk for the forwards that every eval chunk runs, the train batch for
 # the others
-MAIN_SHAPE = {"attention_fwd": "eval", "attention_fwd_drop": "train",
-              "attention_bwd": "train", "attention_bwd_drop": "train"}
+MAIN_SHAPE = {"attention_fwd": "eval", "attention_fwd_infer": "eval",
+              "attention_fwd_drop": "train", "attention_bwd": "train",
+              "attention_bwd_drop": "train"}
 
 
 def emit(obj) -> None:
@@ -97,13 +109,27 @@ def _inputs(torch, R, Kp, H, masked_frac, seed):
     return el, er, mask, dm, grad
 
 
+def _leaf(torch, t, misaligned):
+    """A copy of ``t`` that takes a gradient; with ``misaligned`` its data
+    starts 4 bytes into a larger buffer."""
+    if not misaligned:
+        return t.clone().requires_grad_(True)
+    view = torch.empty(t.numel() + 1, device=t.device)[1:].view(t.shape)
+    return view.copy_(t).requires_grad_(True)
+
+
 def _time_ms(torch, fn, flush) -> float:
     """Median device time of ``fn`` over TIMED_RUNS launches, each after
-    an L2 flush (the main path reads el' once per call)."""
+    an L2 flush (the main path reads el' once per call).  The flush reads
+    a buffer larger than the L2: writing it would leave the L2 full of
+    dirty lines, whose write-back the timed kernel would pay for.  A spin
+    on the device after the flush keeps it busy while the host enqueues
+    ``fn``, so the events time the device's work, not the host's."""
     fn()
     times = []
     for _ in range(TIMED_RUNS):
-        flush.zero_()
+        flush.sum()
+        torch.cuda._sleep(SPIN_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -122,7 +148,10 @@ def _err(got, want):
 def _bound(name, R, Kp, H):
     rkh, rh = R * Kp * H, R * H
     drop = name.endswith("_drop")
-    if name.startswith("attention_fwd"):
+    if name == "attention_fwd_infer":
+        # el', er, mask in; out out
+        nbytes = 4 * rkh + 4 * rh + R * Kp + 4 * rh
+    elif name.startswith("attention_fwd"):
         # el', er, mask, [dm] in; out, a out
         nbytes = 4 * rkh + 4 * rh + R * Kp + 4 * rh + 4 * rkh
     else:
@@ -139,34 +168,49 @@ def _bound(name, R, Kp, H):
 
 def phase_kernels(torch, attention):
     flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    infer = "attention_fwd_infer"
     results = {}
     rows = []
     for si, (label, R, Kp, H, frac) in enumerate(SHAPES):
         el, er, mask, dm, grad = _inputs(torch, R, Kp, H, frac, seed=si)
+        probs = attention.attention_probs_reference(el, er, mask, SLOPE)
+        n_masked = int(R * frac)
         for drop in (False, True):
             dmask = dm if drop else None
             fwd = "attention_fwd_drop" if drop else "attention_fwd"
             bwd = "attention_bwd_drop" if drop else "attention_bwd"
             # kernel through autograd, as the model calls it
-            el_k = el.clone().requires_grad_(True)
+            el_k = _leaf(torch, el, label == "misaligned")
             er_k = er.clone().requires_grad_(True)
             out_k = attention.attention_core(el_k, er_k, mask, SLOPE, dmask)
             out_k.backward(grad)
+            # the forward kernel's residual: the softmax before dropout
+            a = attention.attention_fwd(el_k.detach(), er, mask, SLOPE,
+                                        dmask)[1]
             # plain version on the same inputs
             el_p = el.clone().requires_grad_(True)
             er_p = er.clone().requires_grad_(True)
             out_p = attention.attention_core_reference(el_p, er_p, mask,
                                                        SLOPE, dmask)
             out_p.backward(grad, retain_graph=True)
-            torch.cuda.synchronize()
             checks = {fwd: [("out", out_k.detach(), out_p.detach(),
-                             FWD_TOL)],
+                             FWD_TOL), ("a", a, probs, FWD_TOL)],
                       bwd: [("d_el", el_k.grad, el_p.grad, GRAD_TOL),
                             ("d_er", er_k.grad, er_p.grad, GRAD_TOL)]}
-            if frac:                       # padded rows: exact zeros
-                n = int(R * frac)
-                for t in (out_k, el_k.grad, er_k.grad):
-                    if t[R - n:].abs().max() != 0:
+            zeros = [out_k, el_k.grad, er_k.grad, a]
+            if not drop:                   # the route that eval takes
+                before = attention.launch_counts[infer]
+                with torch.no_grad():
+                    out_i = attention.attention_core(el_k, er_k, mask, SLOPE)
+                if attention.launch_counts[infer] != before + 1:
+                    raise AssertionError(f"{label}: no_grad did not take "
+                                         f"{infer}")
+                checks[infer] = [("out", out_i, out_p.detach(), FWD_TOL)]
+                zeros.append(out_i)
+            torch.cuda.synchronize()
+            if n_masked:                   # padded rows: exact zeros
+                for t in zeros:
+                    if t[R - n_masked:].abs().max() != 0:
                         raise AssertionError(
                             f"{label}: fully masked rows are not zero")
             for name, items in checks.items():
@@ -186,25 +230,28 @@ def phase_kernels(torch, attention):
                             f"over tolerance {tol}")
                     rec = results.setdefault(name, {"max_abs_err": 0.0})
                     rec["max_abs_err"] = max(rec["max_abs_err"], abs_e)
+
             # times at the shapes the main path gives each kernel
-            for name in (fwd, bwd):
+            def plain_fwd(d=dmask):
+                with torch.no_grad():
+                    attention.attention_core_reference(el, er, mask, SLOPE, d)
+
+            g_c = grad.contiguous()
+            timed = {
+                fwd: (lambda: attention.attention_fwd(el, er, mask, SLOPE,
+                                                      dmask), plain_fwd),
+                bwd: (lambda: attention.attention_bwd(el, er, mask, a, g_c,
+                                                      SLOPE, dmask),
+                      lambda: torch.autograd.grad(out_p, (el_p, er_p), grad,
+                                                  retain_graph=True))}
+            if not drop:
+                timed[infer] = (lambda: attention.attention_fwd_infer(
+                    el, er, mask, SLOPE), plain_fwd)
+            for name, (run, plain) in timed.items():
                 if MAIN_SHAPE[name] != label:
                     continue
-                a = attention.attention_fwd(el, er, mask, SLOPE, dmask)[1]
-                g_c = grad.contiguous()
-                if name == fwd:
-                    ms = _time_ms(torch, lambda: attention.attention_fwd(
-                        el, er, mask, SLOPE, dmask), flush)
-                    with torch.no_grad():
-                        plain_ms = _time_ms(
-                            torch, lambda: attention.attention_core_reference(
-                                el, er, mask, SLOPE, dmask), flush)
-                else:
-                    ms = _time_ms(torch, lambda: attention.attention_bwd(
-                        el, er, mask, a, g_c, SLOPE, dmask), flush)
-                    plain_ms = _time_ms(torch, lambda: torch.autograd.grad(
-                        out_p, (el_p, er_p), grad, retain_graph=True),
-                        flush)
+                ms = _time_ms(torch, run, flush)
+                plain_ms = _time_ms(torch, plain, flush)
                 bound_ms, bound_by, nbytes = _bound(name, R, Kp, H)
                 results[name].update(dict(
                     shape=[R, Kp, H], ms=ms, plain_ms=plain_ms,

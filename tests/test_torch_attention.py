@@ -1,7 +1,8 @@
 """The port's attention core (tgb_tgn_dgl_tpu_torch/ops/attention.py)
 against the JAX package's: the plain torch version against the jnp
 reference and the Pallas kernels (interpret mode), forward and both
-gradients, with and without the same injected drop mask.
+gradients, with and without the same injected drop mask, and the forward
+under no_grad; the choice of the inference route (no residual).
 
 Tolerance 1e-5 (abs and rel) on the forward and 1e-4 on the gradients,
 fp32 on both sides: the softmax and the Kp-long sums run in another order
@@ -89,6 +90,41 @@ def test_plain_matches_jax(R, Kp, H, masked, drop, against):
         np.testing.assert_allclose(a, b, rtol=tol, atol=tol, err_msg=name)
 
 
+@pytest.mark.parametrize("R,Kp,H,masked", CASES)
+def test_no_grad_matches_jax(R, Kp, H, masked):
+    el, er, mask, _, _ = _inputs(R, Kp, H, seed=R + Kp, masked_rows=masked)
+    want = np.asarray(jax_attention_reference(
+        jnp.asarray(el), jnp.asarray(er), jnp.asarray(mask), SLOPE))
+    with torch.no_grad():
+        got = port.attention_core(torch.tensor(el, requires_grad=True),
+                                  torch.tensor(er, requires_grad=True),
+                                  torch.from_numpy(mask), SLOPE)
+    assert not got.requires_grad
+    np.testing.assert_allclose(got.numpy(), want, rtol=FWD_TOL, atol=FWD_TOL)
+
+
+ROUTES = [
+    # (autograd on, (el' requires grad, er requires grad), drop mask,
+    #  inference route)
+    pytest.param(True, (True, True), False, False, id="grad"),
+    pytest.param(True, (False, True), False, False, id="grad_er_only"),
+    pytest.param(True, (True, False), False, False, id="grad_el_only"),
+    pytest.param(True, (False, False), False, True, id="no_requires_grad"),
+    pytest.param(False, (True, True), False, True, id="no_grad"),
+    pytest.param(False, (True, True), True, False, id="no_grad_drop"),
+    pytest.param(True, (False, False), True, False, id="drop"),
+]
+
+
+@pytest.mark.parametrize("grad_enabled,requires,drop,want", ROUTES)
+def test_infer_route_choice(grad_enabled, requires, drop, want):
+    el = torch.zeros((4, 3, 2), requires_grad=requires[0])
+    er = torch.zeros((4, 2), requires_grad=requires[1])
+    dm = torch.ones((4, 3, 2)) if drop else None
+    with torch.set_grad_enabled(grad_enabled):
+        assert port.infer_route(el, er, dm) is want
+
+
 def test_fully_masked_rows_give_zeros():
     el, er, mask, g, dm = _inputs(16, 9, 2, seed=3, masked_rows=(4, 11),
                                   drop=True)
@@ -116,29 +152,69 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         port.attention_fwd(el, er, mask, SLOPE)
     with pytest.raises(ValueError, match="CUDA"):
+        port.attention_fwd_infer(el, er, mask, SLOPE)
+    with pytest.raises(ValueError, match="CUDA"):
         port.attention_bwd(el, er, mask, el, g, SLOPE)
 
 
+def _cuda_leaf(x, misaligned):
+    """``x`` on the card as a tensor that takes a gradient; with
+    ``misaligned`` its data starts 4 bytes into a larger buffer."""
+    t = torch.from_numpy(x).to("cuda")
+    if misaligned:
+        t = torch.empty(t.numel() + 1, device="cuda")[1:].view(t.shape)
+        t.copy_(torch.from_numpy(x))
+    return t.requires_grad_(True)
+
+
+CUDA_CASES = [
+    # (R, Kp, H, el' misaligned): the float4 route; the float route with a
+    # row longer than one chunk; the float route forced by alignment
+    pytest.param(64, 43, 8, False, id="Kp43"),
+    pytest.param(40, 200, 3, False, id="H3_Kp200"),
+    pytest.param(64, 43, 8, True, id="misaligned"),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("drop", [False, True], ids=["plain", "drop"])
-def test_cuda_tensor_goes_through_kernel(drop):
+@pytest.mark.parametrize("R,Kp,H,misaligned", CUDA_CASES)
+@pytest.mark.parametrize("route", ["plain", "drop", "infer"])
+def test_cuda_tensor_goes_through_kernel(route, R, Kp, H, misaligned):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    el, er, mask, g, dm = _inputs(64, 43, 8, seed=6, masked_rows=(3,),
+    drop = route == "drop"
+    el, er, mask, g, dm = _inputs(R, Kp, H, seed=6, masked_rows=(3,),
                                   drop=drop)
     dev = torch.device("cuda")
-    tel = torch.tensor(el, device=dev, requires_grad=True)
-    ter = torch.tensor(er, device=dev, requires_grad=True)
+    tel = _cuda_leaf(el, misaligned)
+    ter = _cuda_leaf(er, False)
+    tmask = torch.from_numpy(mask).to(dev)
     tdm = None if dm is None else torch.from_numpy(dm).to(dev)
+    want = _port_fwd_grads(el, er, mask, g, dm)
     port.reset_launch_counts()
-    out = port.attention_core(tel, ter, torch.from_numpy(mask).to(dev),
-                              SLOPE, tdm)
+    if route == "infer":
+        with torch.no_grad():
+            out = port.attention_core(tel, ter, tmask, SLOPE)
+        torch.cuda.synchronize()
+        assert port.launch_counts == {
+            name: int(name == "attention_fwd_infer") for name in port.KERNELS}
+        np.testing.assert_allclose(out.cpu().numpy(), want[0],
+                                   rtol=FWD_TOL, atol=FWD_TOL)
+        return
+    out = port.attention_core(tel, ter, tmask, SLOPE, tdm)
     (out * torch.from_numpy(g).to(dev)).sum().backward()
     torch.cuda.synchronize()
     fwd, bwd = (("attention_fwd_drop", "attention_bwd_drop") if drop
                 else ("attention_fwd", "attention_bwd"))
-    assert port.launch_counts[fwd] == 1 and port.launch_counts[bwd] == 1
-    want = _port_fwd_grads(el, er, mask, g, dm)
+    assert port.launch_counts == {name: int(name in (fwd, bwd))
+                                  for name in port.KERNELS}
     for a, b in zip((out, tel.grad, ter.grad), want):
         np.testing.assert_allclose(a.detach().cpu().numpy(), b,
                                    rtol=GRAD_TOL, atol=GRAD_TOL)
+    # the residual: the softmax probabilities before dropout
+    a = port.attention_fwd(tel.detach(), ter.detach(), tmask, SLOPE, tdm)[1]
+    probs = port.attention_probs_reference(
+        torch.from_numpy(el), torch.from_numpy(er), torch.from_numpy(mask),
+        SLOPE)
+    np.testing.assert_allclose(a.cpu().numpy(), probs.numpy(),
+                               rtol=FWD_TOL, atol=FWD_TOL)

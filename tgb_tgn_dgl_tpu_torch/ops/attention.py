@@ -14,7 +14,9 @@ bool, drop mask (R, Kp, H) pre-scaled to 1/keep or 0; out (R, H).
 
 ``attention_core`` dispatches on the device of its input: a CPU tensor
 goes to ``attention_core_reference`` (the plain torch version), a CUDA
-tensor to the hand-written kernels of csrc/attention.cu, through two
+tensor to the hand-written kernels of csrc/attention.cu.  When no
+gradient is needed (``infer_route``) that is the forward without the
+residual ``a``, ``attention_fwd_infer``; otherwise it goes through two
 ``torch.autograd.Function``s (without and with the drop mask) whose
 backward is a kernel too.  There is no fallback from CUDA to the plain
 version: a kernel that fails to build or launch raises.
@@ -32,8 +34,8 @@ import torch
 from . import _build
 from .segment import masked_softmax
 
-KERNELS = ("attention_fwd", "attention_bwd", "attention_fwd_drop",
-           "attention_bwd_drop")
+KERNELS = ("attention_fwd", "attention_fwd_infer", "attention_bwd",
+           "attention_fwd_drop", "attention_bwd_drop")
 launch_counts = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
@@ -43,6 +45,8 @@ _ARGTYPES = {
     # el, er, mask, [dm], out, a, R, Kp, H, slope, stream
     "attention_fwd": [_P] * 5 + [_I] * 3 + [_F, _P],
     "attention_fwd_drop": [_P] * 6 + [_I] * 3 + [_F, _P],
+    # el, er, mask, out, R, Kp, H, slope, stream
+    "attention_fwd_infer": [_P] * 4 + [_I] * 3 + [_F, _P],
     # el, er, mask, [dm], a, g, d_el, d_er, R, Kp, H, slope, stream
     "attention_bwd": [_P] * 7 + [_I] * 3 + [_F, _P],
     "attention_bwd_drop": [_P] * 8 + [_I] * 3 + [_F, _P],
@@ -56,6 +60,16 @@ def reset_launch_counts() -> None:
 
 
 # ----------------------------------------------------------------- plain
+def attention_probs_reference(el_prime: torch.Tensor, er: torch.Tensor,
+                              mask: torch.Tensor, negative_slope: float
+                              ) -> torch.Tensor:
+    """Plain torch softmax probabilities (R, Kp, H), 0 where masked: the
+    forward kernels' residual ``a``."""
+    x = el_prime + er[:, None, :]
+    logits = torch.where(x >= 0, x, x * negative_slope)
+    return masked_softmax(logits, mask[..., None], dim=1)
+
+
 def attention_core_reference(el_prime: torch.Tensor, er: torch.Tensor,
                              mask: torch.Tensor, negative_slope: float,
                              drop_mask: Optional[torch.Tensor] = None
@@ -63,9 +77,7 @@ def attention_core_reference(el_prime: torch.Tensor, er: torch.Tensor,
     """Plain torch version: el' (R, Kp, H), er (R, H), mask (R, Kp) ->
     (R, H).  The XLA chain of tgb_tgn_dgl_tpu/models/tgnn.py:232-236 with
     the drop mask applied between the softmax and the weighted sum."""
-    x = el_prime + er[:, None, :]
-    logits = torch.where(x >= 0, x, x * negative_slope)
-    a = masked_softmax(logits, mask[..., None], dim=1)
+    a = attention_probs_reference(el_prime, er, mask, negative_slope)
     if drop_mask is not None:
         a = a * drop_mask
     return torch.sum(a * el_prime, dim=1)
@@ -136,6 +148,20 @@ def attention_fwd(el: torch.Tensor, er: torch.Tensor, mask: torch.Tensor,
     return out, a
 
 
+def attention_fwd_infer(el: torch.Tensor, er: torch.Tensor,
+                        mask: torch.Tensor, negative_slope: float
+                        ) -> torch.Tensor:
+    """Forward kernel without the residual -> out (R, H), for calls that
+    need no gradient."""
+    R, Kp, H = _check_inputs(el, er, mask, None)
+    out = torch.empty((R, H), dtype=torch.float32, device=el.device)
+    with torch.cuda.device(el.device):
+        _launch("attention_fwd_infer", el.data_ptr(), er.data_ptr(),
+                mask.data_ptr(), out.data_ptr(), R, Kp, H,
+                float(negative_slope))
+    return out
+
+
 def attention_bwd(el: torch.Tensor, er: torch.Tensor, mask: torch.Tensor,
                   a: torch.Tensor, g: torch.Tensor, negative_slope: float,
                   drop_mask: Optional[torch.Tensor] = None):
@@ -196,6 +222,16 @@ class _AttentionCoreDrop(torch.autograd.Function):
         return d_el, d_er, None, None, None
 
 
+def infer_route(el_prime: torch.Tensor, er: torch.Tensor,
+                drop_mask: Optional[torch.Tensor]) -> bool:
+    """Whether ``attention_core`` takes the forward without the residual:
+    no drop mask (dropout is off at eval), and no gradient to compute,
+    because autograd is off or neither el' nor er requires one."""
+    return drop_mask is None and not (
+        torch.is_grad_enabled()
+        and (el_prime.requires_grad or er.requires_grad))
+
+
 def attention_core(el_prime: torch.Tensor, er: torch.Tensor,
                    mask: torch.Tensor, negative_slope: float,
                    drop_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -207,6 +243,8 @@ def attention_core(el_prime: torch.Tensor, er: torch.Tensor,
     el_prime = el_prime.to(torch.float32).contiguous()
     er = er.to(torch.float32).contiguous()
     mask = mask.contiguous()
+    if infer_route(el_prime, er, drop_mask):
+        return attention_fwd_infer(el_prime, er, mask, float(negative_slope))
     if drop_mask is None:
         return _AttentionCore.apply(el_prime, er, mask,
                                     float(negative_slope))
