@@ -1,19 +1,33 @@
 #!/usr/bin/env python3
 """A/B timing of two builds of the port's attention kernels on one GPU.
 
-    python3 ab_attention_cuda.py --baseline OLD/attention.cu [--rounds 5]
+    python3 ab_attention_cuda.py --baseline OLD/attention.cu
 
 Builds ``OLD/attention.cu`` (an earlier version of
 tgb_tgn_dgl_tpu_torch/csrc/attention.cu, for example from ``git archive``
 of the parent commit) with this checkout's nvcc flags, beside this
 checkout's own build.  Then it times every entry point at the shape
-chip_smoke.py times it at, with chip_smoke.py's inputs and timing (median
-of 30 launches, each after an L2 flush), calling both libraries through
-ctypes with the same preallocated outputs.  Each round runs baseline,
-change, change, baseline; an entry point the baseline lacks is timed on
-the change side only.  One JSON line per entry point with every run's
-median, then the nvidia-smi name and power limit.  Exits 2 without a CUDA
-device.
+chip_smoke.py times it at, with chip_smoke.py's inputs, calling both
+libraries through ctypes with the same preallocated outputs.  Each
+timing is a median of 30 launches, taken two ways:
+
+  written_flush    chip_smoke.py's own: each launch after a 128 MB write
+                   that flushes the L2 (and leaves it full of dirty
+                   lines, whose write-back the timed kernel shares)
+  read_flush_spin  each launch after a 128 MB read that flushes the L2,
+                   then a device spin of about 1 ms, so that neither
+                   write-back nor the host's enqueue time falls inside
+                   the events
+
+Each of ROUNDS rounds runs baseline, change, change, baseline under each
+timing; an entry point the baseline lacks is timed on the change side
+only.  For the forward entry points each round also times ``stream``: one
+torch call that reads and writes the same large tensors with no math
+(el' -> a for attention_fwd, el' summed over Kp for attention_fwd_infer,
+el' * dm -> a for attention_fwd_drop), what the memory system gives for
+those bytes under that timing.  One JSON line per entry point and timing
+with every run's median, then the nvidia-smi name and power limit.  Exits
+2 without a CUDA device.
 """
 from __future__ import annotations
 
@@ -26,6 +40,29 @@ import sys
 import chip_smoke as cs
 
 ORDER = ("baseline", "change", "change", "baseline")
+ROUNDS = 5
+SPIN_CYCLES = 2_000_000       # about 1 ms of device time
+
+
+def time_ms_read_spin(torch, fn, flush) -> float:
+    """Median device time of ``fn`` over cs.TIMED_RUNS launches, each after
+    a read of ``flush`` and a device spin."""
+    fn()
+    times = []
+    for _ in range(cs.TIMED_RUNS):
+        flush.sum()
+        torch.cuda._sleep(SPIN_CYCLES)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+TIMINGS = {"written_flush": cs.time_ms, "read_flush_spin": time_ms_read_spin}
 
 
 def _build_baseline(build, path: str) -> ctypes.CDLL:
@@ -43,7 +80,6 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", required=True,
                     help="path of the earlier attention.cu")
-    ap.add_argument("--rounds", type=int, default=5)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -57,7 +93,8 @@ def main() -> int:
     stream = torch.cuda.current_stream().cuda_stream
     for name in attention.KERNELS:
         R, Kp, H, frac = shapes[cs.MAIN_SHAPE[name]]
-        el, er, mask, dm, grad = cs._inputs(torch, R, Kp, H, frac, seed=0)
+        el, er, mask, dm, grad = cs.kernel_inputs(torch, R, Kp, H, frac,
+                                                  seed=0)
         a = attention.attention_probs_reference(el, er, mask, cs.SLOPE)
         out, d_er = torch.empty_like(er), torch.empty_like(er)
         res, d_el = torch.empty_like(el), torch.empty_like(el)
@@ -70,6 +107,11 @@ def main() -> int:
         }[name]
         argv = [t.data_ptr() for t in tensors] + [R, Kp, H, cs.SLOPE, stream]
         calls = {}
+        stream_fn = {
+            "attention_fwd": lambda: res.copy_(el),
+            "attention_fwd_infer": lambda: torch.sum(el, dim=1, out=out),
+            "attention_fwd_drop": lambda: torch.mul(el, dm, out=res),
+        }.get(name)
         for side, lib in libs.items():
             fn = getattr(lib, name, None)
             if fn is None:
@@ -82,18 +124,23 @@ def main() -> int:
                 if rc != 0:
                     raise RuntimeError(f"{side} {name}: CUDA error {rc}")
             calls[side] = call
-        runs = {side: [] for side in calls}
-        for _ in range(args.rounds):
-            for side in ORDER:
-                if side in calls:
-                    runs[side].append(cs._time_ms(torch, calls[side], flush))
-        bound_ms, bound_by, nbytes = cs._bound(name, R, Kp, H)
-        rec = dict(kernel=name, timed_at=[R, Kp, H], bound_ms=bound_ms,
-                   bound_by=bound_by, bytes=nbytes)
-        for side, ms in runs.items():
-            rec[f"{side}_ms"] = ms
-            rec[f"{side}_median_ms"] = statistics.median(ms)
-        cs.emit(rec)
+        bound_ms, bound_by, nbytes = cs.kernel_bound(name, R, Kp, H)
+        for timing, timer in TIMINGS.items():
+            runs = {side: [] for side in calls}
+            if stream_fn is not None:
+                runs["stream"] = []
+            for _ in range(ROUNDS):
+                for side in ORDER:
+                    if side in calls:
+                        runs[side].append(timer(torch, calls[side], flush))
+                if stream_fn is not None:
+                    runs["stream"].append(timer(torch, stream_fn, flush))
+            rec = dict(kernel=name, timing=timing, timed_at=[R, Kp, H],
+                       bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
+            for side, ms in runs.items():
+                rec[f"{side}_ms"] = ms
+                rec[f"{side}_median_ms"] = statistics.median(ms)
+            cs.emit(rec)
     print(cs.nvidia_smi_line(), flush=True)
     return 0
 

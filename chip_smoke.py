@@ -46,8 +46,7 @@ FWD_TOL = 1e-5                # |kernel - plain| <= tol + tol·|plain|
 GRAD_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM
 FP32_OPS_PER_S = 67e12        # H100 SXM, outside the tensor cores
-L2_FLUSH_BYTES = 128 << 20    # > the 50 MB L2; read, not written (see _time_ms)
-SPIN_CYCLES = 2_000_000       # about 1 ms of device time before each launch
+L2_FLUSH_BYTES = 128 << 20    # > the 50 MB L2
 TIMED_RUNS = 30
 
 # per (r, k, h) element: fwd = add, leaky (cmp, mul), running max/sum
@@ -66,12 +65,14 @@ REPLACES = {
 SOURCE = "tgb_tgn_dgl_tpu_torch/csrc/attention.cu"
 # (label, R, Kp, H, fully masked rows as a fraction of R).  odd_h takes
 # the forward's float route (H % 4 != 0), long_kp its chunked route (a row
-# of more than 512 floats), misaligned both (el' starts 4 bytes past a
-# 16-byte boundary)
+# of more than 48 floats a lane over 32 lanes), misaligned both (el'
+# starts 4 bytes past a 16-byte boundary), odd_h_long the float route
+# with lanes that a head vector does not fill (the tree reduction)
 SHAPES = [("train", 6144, 43, 8, 0.02), ("eval", 40960, 43, 8, 0.02),
           ("masked", 512, 43, 8, 0.5), ("odd_kp", 1000, 17, 8, 0.0),
           ("odd_h", 999, 17, 3, 0.1), ("long_kp", 512, 200, 8, 0.1),
-          ("misaligned", 1000, 200, 8, 0.1)]
+          ("misaligned", 1000, 200, 8, 0.1),
+          ("odd_h_long", 999, 200, 3, 0.1)]
 # the shape each kernel's record in the table is timed at: the eval
 # chunk for the forwards that every eval chunk runs, the train batch for
 # the others
@@ -93,7 +94,7 @@ def nvidia_smi_line() -> str:
 
 
 # ------------------------------------------------------------------ kernels
-def _inputs(torch, R, Kp, H, masked_frac, seed):
+def kernel_inputs(torch, R, Kp, H, masked_frac, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
     el = torch.randn((R, Kp, H), generator=g, device=dev)
@@ -118,18 +119,13 @@ def _leaf(torch, t, misaligned):
     return view.copy_(t).requires_grad_(True)
 
 
-def _time_ms(torch, fn, flush) -> float:
+def time_ms(torch, fn, flush) -> float:
     """Median device time of ``fn`` over TIMED_RUNS launches, each after
-    an L2 flush (the main path reads el' once per call).  The flush reads
-    a buffer larger than the L2: writing it would leave the L2 full of
-    dirty lines, whose write-back the timed kernel would pay for.  A spin
-    on the device after the flush keeps it busy while the host enqueues
-    ``fn``, so the events time the device's work, not the host's."""
+    an L2 flush (the main path reads el' once per call)."""
     fn()
     times = []
     for _ in range(TIMED_RUNS):
-        flush.sum()
-        torch.cuda._sleep(SPIN_CYCLES)
+        flush.zero_()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -145,7 +141,7 @@ def _err(got, want):
     return float(d.max()), float((d / want.abs().clamp(min=1e-6)).max())
 
 
-def _bound(name, R, Kp, H):
+def kernel_bound(name, R, Kp, H):
     rkh, rh = R * Kp * H, R * H
     drop = name.endswith("_drop")
     if name == "attention_fwd_infer":
@@ -172,7 +168,7 @@ def phase_kernels(torch, attention):
     results = {}
     rows = []
     for si, (label, R, Kp, H, frac) in enumerate(SHAPES):
-        el, er, mask, dm, grad = _inputs(torch, R, Kp, H, frac, seed=si)
+        el, er, mask, dm, grad = kernel_inputs(torch, R, Kp, H, frac, seed=si)
         probs = attention.attention_probs_reference(el, er, mask, SLOPE)
         n_masked = int(R * frac)
         for drop in (False, True):
@@ -250,9 +246,9 @@ def phase_kernels(torch, attention):
             for name, (run, plain) in timed.items():
                 if MAIN_SHAPE[name] != label:
                     continue
-                ms = _time_ms(torch, run, flush)
-                plain_ms = _time_ms(torch, plain, flush)
-                bound_ms, bound_by, nbytes = _bound(name, R, Kp, H)
+                ms = time_ms(torch, run, flush)
+                plain_ms = time_ms(torch, plain, flush)
+                bound_ms, bound_by, nbytes = kernel_bound(name, R, Kp, H)
                 results[name].update(dict(
                     shape=[R, Kp, H], ms=ms, plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes))

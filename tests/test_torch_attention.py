@@ -92,6 +92,10 @@ def test_plain_matches_jax(R, Kp, H, masked, drop, against):
 
 @pytest.mark.parametrize("R,Kp,H,masked", CASES)
 def test_no_grad_matches_jax(R, Kp, H, masked):
+    """``attention_core`` under no_grad on CPU tensors, which take the plain
+    version before any route choice: this covers the CPU dispatch only.
+    The inference kernel itself is held against the plain version in
+    ``test_cuda_tensor_goes_through_kernel`` (route "infer")."""
     el, er, mask, _, _ = _inputs(R, Kp, H, seed=R + Kp, masked_rows=masked)
     want = np.asarray(jax_attention_reference(
         jnp.asarray(el), jnp.asarray(er), jnp.asarray(mask), SLOPE))
@@ -155,6 +159,18 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         port.attention_fwd_infer(el, er, mask, SLOPE)
     with pytest.raises(ValueError, match="CUDA"):
         port.attention_bwd(el, er, mask, el, g, SLOPE)
+
+
+@pytest.mark.parametrize("drop", [False, True], ids=["plain", "drop"])
+def test_forward_wrappers_refuse_more_than_32_heads(drop):
+    el, er, mask, _, dm = _inputs(4, 3, 33, seed=7, drop=drop)
+    el, er, mask = map(torch.from_numpy, (el, er, mask))
+    dm = None if dm is None else torch.from_numpy(dm)
+    with pytest.raises(ValueError, match="at most 32 heads"):
+        port.attention_fwd(el, er, mask, SLOPE, dm)
+    if not drop:
+        with pytest.raises(ValueError, match="at most 32 heads"):
+            port.attention_fwd_infer(el, er, mask, SLOPE)
 
 
 def _cuda_leaf(x, misaligned):

@@ -61,6 +61,11 @@
 // Instruction count is the second limit at these shapes: about 12
 // instructions per element, so branches, guarded loads, expf and the
 // select of leaky are all kept out of the inner loops.
+// A persistent variant that stages each row group in a shared-memory ring
+// (one cp.async.bulk per tensor, an mbarrier per stage) was slower on the
+// H100 at every footprint tried: its registers and stages leave 8 warps
+// an SM, against 16 here, and each warp's reductions then sit between
+// its copies (PERF.md, PR 2).
 //
 // attention_fwd_infer is the same kernel without the store of a: at an
 // eval chunk that halves the bytes moved.
@@ -83,8 +88,6 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <algorithm>
 
 namespace {
 
@@ -115,6 +118,19 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+template <int V>
+__device__ __forceinline__ void load(const float* p, float (&d)[V]) {
+  if constexpr (V == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    d[0] = t.x;
+    d[1] = t.y;
+    d[2] = t.z;
+    d[3] = t.w;
+  } else {
+    d[0] = __ldg(p);
+  }
 }
 
 template <int V>
@@ -162,114 +178,9 @@ __device__ __forceinline__ void group_reduce(float (&v)[V], const Seat& s) {
   for (int j = 0; j < V; ++j) v[j] = __shfl_sync(kFull, v[j], s.src);
 }
 
-// Shared-memory ring: each warp owns kStages stage buffers, each with an
-// mbarrier.  Lane 0 copies an item (the spans of el', dm, mask and er for
-// one row group or one chunk of a long row) into a stage with one 1-D
-// bulk copy (TMA) per tensor, completing on the stage's mbarrier; the
-// warp waits on it, takes the item into registers and hands the stage
-// back to lane 0 for the item kStages ahead.
-constexpr int kStages = 3;
-
-// Bytes of each span in a stage: the largest item plus the slack of a
-// span that starts inside a 16-byte granule.  An item holds at most
-// 32 * lane_floats floats of el' (and of dm), as many mask bytes at most,
-// and at most 128 floats of er (rows * H <= 32 * V).
-__host__ __device__ constexpr int el_bytes(bool drop) {
-  return 32 * lane_floats(drop) * 4 + 32;
-}
-__host__ __device__ constexpr int mask_bytes(bool drop) {
-  return 32 * lane_floats(drop) + 32;
-}
-constexpr int kErBytes = 128 * 4 + 32;
-
-__host__ __device__ constexpr int stage_bytes(bool drop) {
-  return (drop ? 2 : 1) * el_bytes(drop) + mask_bytes(drop) + kErBytes;
-}
-
-__host__ __device__ constexpr int warp_smem_bytes(bool drop) {
-  return kStages * (8 + stage_bytes(drop));
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-// arrive on `bar` and have its phase wait for `bytes` of bulk copies
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// wait until the phase of `bar` with this parity has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// The 16-byte granules that hold floats [src, src + n): a bulk copy
-// moves whole granules, so the span's first float lands (src & 15) bytes
-// into the stage.  A granule never crosses a page, so the bytes around
-// the span are mapped.
-struct Span {
-  uintptr_t lo;
-  uint32_t bytes;
-};
-
-template <typename T>
-__device__ __forceinline__ Span granules(const T* src, long long n) {
-  const uintptr_t lo = (uintptr_t)src & ~(uintptr_t)15;
-  const uintptr_t hi = ((uintptr_t)(src + n) + 15) & ~(uintptr_t)15;
-  return {lo, (uint32_t)(hi - lo)};
-}
-
-// where the span's first element lands in its stage buffer
-template <typename T>
-__device__ __forceinline__ const T* landed(const unsigned char* buf,
-                                          const T* src) {
-  return reinterpret_cast<const T*>(buf + ((uintptr_t)src & 15));
-}
-
-__device__ __forceinline__ void bulk_copy(void* dst, Span sp, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
-      "l"(sp.lo), "r"(sp.bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-template <int V>
-__device__ __forceinline__ void load(const float* p, float (&d)[V]) {
-  if constexpr (V == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    d[0] = t.x;
-    d[1] = t.y;
-    d[2] = t.z;
-    d[3] = t.w;
-  } else {
-    d[0] = *p;
-  }
-}
-
 // V = 4: float4 loads and stores; V = 1: floats.  DROP: read dm.
 // STORE_A: write the residual a.  `lanes` (chosen at launch) is the
-// number of lanes per root slot: 32 / lanes root slots (a row group)
-// share a warp.  A persistent grid: warp w takes row groups w, w + W, ...
-// (W warps in the grid), each as `chunks` items (a second pass of them
-// for a when a long row is taken in chunks).
+// number of lanes per root slot: 32 / lanes root slots share a warp.
 template <int V, bool DROP, bool STORE_A>
 __global__ void __launch_bounds__(kThreads)
 attention_fwd_kernel(const float* __restrict__ el, const float* __restrict__ er,
@@ -278,24 +189,12 @@ attention_fwd_kernel(const float* __restrict__ el, const float* __restrict__ er,
                      float* __restrict__ a, int R, int Kp, int H, int lanes,
                      float slope) {
   constexpr int NV = lane_floats(DROP) / V;  // vectors a lane holds per chunk
-  constexpr int SB = stage_bytes(DROP);
-  extern __shared__ __align__(128) unsigned char smem[];
   const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem) + warp * kStages;
-  unsigned char* stages = smem + kWarps * kStages * 8 + warp * kStages * SB;
-  // offsets of the spans in a stage
-  constexpr int kDm = el_bytes(DROP);
-  constexpr int kMask = (DROP ? 2 : 1) * el_bytes(DROP);
-  constexpr int kEr = kMask + mask_bytes(DROP);
-  const int rpg = 32 / lanes;  // rows per group
-  const long long groups = ((long long)R + rpg - 1) / rpg;
-  const long long gw = (long long)blockIdx.x * kWarps + warp;
-  const long long nw = (long long)gridDim.x * kWarps;
-  const long long my_groups = groups > gw ? (groups - gw + nw - 1) / nw : 0;
-
+  const long long first =
+      ((long long)blockIdx.x * kWarps + threadIdx.x / 32) * (32 / lanes);
+  if (first >= R) return;  // the whole warp leaves
+  const long long r = first + lane / lanes;
   const int lr = lane % lanes;
-  const int rr = lane / lanes;  // the lane's row in its group
   Seat seat;
   seat.lanes = lanes;
   seat.width = H / V;          // head vectors per column (<= lanes)
@@ -303,78 +202,47 @@ attention_fwd_kernel(const float* __restrict__ el, const float* __restrict__ er,
   seat.t = lr / seat.width;
   seat.src = lane - lr + lr % seat.width;
   const int G = seat.G, t = seat.t;
+  const bool active = r < R && t < G;
   const int h = (lr % seat.width) * V;  // first head of this lane
-  const int cols = G * NV;              // columns per chunk
+  const int cols = G * NV;                    // columns per chunk
   const int chunks = (Kp + cols - 1) / cols;
-  const int passes = STORE_A && chunks > 1 ? 2 : 1;
-  const long long items = my_groups * chunks * passes;
   const bool up = slope <= 1.f;
-
   if (Kp == 0) {  // no column: out = 0 (and a is empty)
-    for (long long j = 0; j < my_groups; ++j) {
-      const long long r = (gw + j * nw) * rpg + rr;
-      if (r < R && t < G) {
-        float z[V] = {};
-        store<V>(out + r * H + h, z);
-      }
+    if (active && t == 0) {
+      float z[V] = {};
+      store<V>(out + r * H + h, z);
     }
     return;
   }
+  // Loads are not guarded (a guard costs a branch per load): a lane past
+  // the last root slot reads the last one, a column past Kp the last
+  // column, and ok[] keeps them out of every sum.
+  const long long rl = r < R ? r : R - 1;
+  const long long row = rl * Kp * H + h;  // el'[rl, 0, h]
+  const uint8_t* m = mask + rl * Kp;
 
-  // item n: row group j, chunk c of pass `pass`; its span of el' (and of
-  // dm) is `n` floats from float `f`, of mask `nm` bytes from byte `fm`
-  struct Item {
-    long long j, row0, f, n, fm;
-    int c, pass, rows, ncols, nm;
-  };
-  auto item = [&](long long n) {
-    Item it;
-    const long long q = n % (chunks * passes);
-    it.j = n / (chunks * passes);
-    it.c = (int)(q % chunks);
-    it.pass = (int)(q / chunks);
-    it.row0 = (gw + it.j * nw) * rpg;
-    it.rows = (int)min((long long)rpg, R - it.row0);
-    it.ncols = min(cols, Kp - it.c * cols);
-    it.f = it.row0 * Kp * H + (long long)it.c * cols * H;
-    it.n = chunks > 1 ? (long long)it.ncols * H : (long long)it.rows * Kp * H;
-    it.fm = it.row0 * Kp + (long long)it.c * cols;
-    it.nm = chunks > 1 ? it.ncols : it.rows * Kp;
-    return it;
-  };
-  auto issue = [&](long long n) {  // lane 0 only
-    const int s = (int)(n % kStages);
-    unsigned char* buf = stages + s * SB;
-    const Item it = item(n);
-    const Span se = granules(el + it.f, it.n);
-    const Span sd = DROP ? granules(dm + it.f, it.n) : Span{0, 0};
-    const Span sm = granules(mask + it.fm, it.nm);
-    const Span sr = granules(er + it.row0 * H, (long long)it.rows * H);
-    mbar_expect(&bars[s], se.bytes + sd.bytes + sm.bytes + sr.bytes);
-    bulk_copy(buf, se, &bars[s]);
-    if (DROP) bulk_copy(buf + kDm, sd, &bars[s]);
-    bulk_copy(buf + kMask, sm, &bars[s]);
-    bulk_copy(buf + kEr, sr, &bars[s]);
-  };
+  float erv[V];
+  load<V>(er + rl * H + h, erv);
 
-  if (lane == 0) {
-    for (int s = 0; s < kStages; ++s) mbar_init(&bars[s]);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    for (long long n = 0; n < min(items, (long long)kStages); ++n) issue(n);
-  }
-  __syncwarp();
-
-  float erv[V], e[NV][V], d[NV][V], p[NV][V];
+  // lane's columns of chunk c: k = c * cols + t + G * i, i < NV
+  float e[NV][V], d[NV][V], p[NV][V];
   bool ok[NV];
-  bool active = false;
-  long long r = 0;
-  float mx[V], s[V], acc[V], inv[V];
-
+  // all loads of a chunk are issued before any is used
+  auto load_chunk = [&](int c) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int k = c * cols + t + G * i;
+      const int kc = min(k, Kp - 1);
+      load<V>(el + row + (long long)kc * H, e[i]);
+      if (DROP) load<V>(dm + row + (long long)kc * H, d[i]);
+      ok[i] = (__ldg(m + kc) != 0) & active & (k < Kp);
+    }
+  };
   // raises mx to the largest logit of the chunk's valid columns: leaky is
   // monotone on each side of 0, so that is the logit of the largest or of
   // the smallest el' (the same float ops, so the same bits).  Masked
   // columns enter as NaN, which fmaxf and fminf pass over.
-  auto chunk_max = [&](float(&m)[V]) {
+  auto chunk_max = [&](float(&mx)[V]) {
     float hi[V], lo[V];
 #pragma unroll
     for (int j = 0; j < V; ++j) hi[j] = lo[j] = __int_as_float(0x7fffffff);
@@ -389,15 +257,15 @@ attention_fwd_kernel(const float* __restrict__ el, const float* __restrict__ er,
 #pragma unroll
     for (int j = 0; j < V; ++j)
       if (hi[j] == hi[j])  // not NaN: the chunk has a valid column
-        m[j] = fmaxf(m[j], fmaxf(leaky(hi[j] + erv[j], slope, up),
-                                 leaky(lo[j] + erv[j], slope, up)));
+        mx[j] = fmaxf(mx[j], fmaxf(leaky(hi[j] + erv[j], slope, up),
+                                   leaky(lo[j] + erv[j], slope, up)));
   };
-  // p = exp(x - m) on the valid columns, 0 elsewhere; ss += p,
-  // ac += p dm e
-  auto exps = [&](const float(&m)[V], float(&ss)[V], float(&ac)[V]) {
+  // p = exp(x - mx) on the valid columns, 0 elsewhere; s += p,
+  // acc += p dm e
+  auto exps = [&](const float(&mx)[V], float(&s)[V], float(&acc)[V]) {
     float nm[V];
 #pragma unroll
-    for (int j = 0; j < V; ++j) nm[j] = -m[j] * kLog2e;
+    for (int j = 0; j < V; ++j) nm[j] = -mx[j] * kLog2e;
 #pragma unroll
     for (int i = 0; i < NV; ++i)
 #pragma unroll
@@ -405,11 +273,11 @@ attention_fwd_kernel(const float* __restrict__ el, const float* __restrict__ er,
         const float x = leaky(e[i][j] + erv[j], slope, up);
         const float q = ok[i] ? ex2(fmaf(x, kLog2e, nm[j])) : 0.f;
         p[i][j] = q;
-        ss[j] += q;
-        ac[j] = fmaf(DROP ? q * d[i][j] : q, e[i][j], ac[j]);
+        s[j] += q;
+        acc[j] = fmaf(DROP ? q * d[i][j] : q, e[i][j], acc[j]);
       }
   };
-  auto store_a = [&](int c) {
+  auto store_a = [&](int c, const float(&inv)[V]) {
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       const int k = c * cols + t + G * i;
@@ -417,74 +285,29 @@ attention_fwd_kernel(const float* __restrict__ el, const float* __restrict__ er,
         float av[V];
 #pragma unroll
         for (int j = 0; j < V; ++j) av[j] = p[i][j] * inv[j];
-        store<V>(a + (r * Kp + k) * H + h, av);
+        store<V>(a + row + (long long)k * H, av);
       }
     }
   };
-  // the sums of the lanes of each head vector, 1 / sum, and out
-  auto finish = [&]() {
-    group_reduce<false>(s, seat);
-    group_reduce<false>(acc, seat);
-#pragma unroll
-    for (int j = 0; j < V; ++j) inv[j] = 1.f / fmaxf(s[j], 1e-30f);
-    if (active && t == 0) {
-      float o[V];
-#pragma unroll
-      for (int j = 0; j < V; ++j) o[j] = acc[j] * inv[j];
-      store<V>(out + r * H + h, o);
-    }
-  };
 
-  for (long long n = 0; n < items; ++n) {
-    const int st = (int)(n % kStages);
-    const Item it = item(n);
-    mbar_wait(&bars[st], (uint32_t)((n / kStages) & 1));
-    // the lane's values, from the stage into registers.  Reads are not
-    // guarded: a lane past the group's last row reads that row, a column
-    // past the item's last that column, and ok[] keeps them out of every
-    // sum.
-    const unsigned char* buf = stages + st * SB;
-    const int rc = min(rr, it.rows - 1);
-    if (it.c == 0 && it.pass == 0) {  // a new row group
-      r = it.row0 + rr;
-      active = r < R && t < G;
+  float mx[V], s[V], acc[V], inv[V];
 #pragma unroll
-      for (int j = 0; j < V; ++j) {
-        mx[j] = kNegInf;
-        s[j] = 0.f;
-        acc[j] = 0.f;
-      }
-    }
-    load<V>(landed(buf + kEr, er + it.row0 * H) + rc * H + h, erv);
-    const float* se = landed(buf, el + it.f);
-    const float* sd = DROP ? landed(buf + kDm, dm + it.f) : se;
-    const uint8_t* sm = landed(buf + kMask, mask + it.fm) +
-                        (chunks > 1 ? 0 : rc * Kp);
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      const int kl = min(t + G * i, it.ncols - 1);  // column within the item
-      const int o = (rc * Kp + kl) * H + h;
-      load<V>(se + o, e[i]);
-      if (DROP) load<V>(sd + o, d[i]);
-      ok[i] = (sm[kl] != 0) & active & (t + G * i < it.ncols);
-    }
-    __syncwarp();
-    if (lane == 0 && n + kStages < items) {
-      // the warp's reads of the stage come before the copy that refills it
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-      issue(n + kStages);
-    }
-
-    if (chunks == 1) {
-      // the row is in registers: the max, then exp and sum, then a and out
-      chunk_max(mx);
-      group_reduce<true>(mx, seat);
-      exps(mx, s, acc);
-      finish();
-      if (STORE_A) store_a(0);
-    } else if (it.pass == 0) {
-      // a long row: a running (max, sum, acc) per lane over the chunks,
-      // merged across lanes after the last
+  for (int j = 0; j < V; ++j) {
+    mx[j] = kNegInf;
+    s[j] = 0.f;
+    acc[j] = 0.f;
+  }
+  if (chunks <= 1) {
+    // the row is in registers: the max, then exp and sum, then a and out
+    load_chunk(0);
+    chunk_max(mx);
+    group_reduce<true>(mx, seat);
+    exps(mx, s, acc);
+  } else {
+    // a long row: a running (max, sum, acc) per lane over the chunks,
+    // merged across lanes
+    for (int c = 0; c < chunks; ++c) {
+      load_chunk(c);
       float cm[V];
 #pragma unroll
       for (int j = 0; j < V; ++j) cm[j] = mx[j];
@@ -497,26 +320,40 @@ attention_fwd_kernel(const float* __restrict__ el, const float* __restrict__ er,
         mx[j] = cm[j];
       }
       exps(mx, s, acc);
-      if (it.c == chunks - 1) {
-        float g[V];
-#pragma unroll
-        for (int j = 0; j < V; ++j) g[j] = mx[j];
-        group_reduce<true>(g, seat);
-#pragma unroll
-        for (int j = 0; j < V; ++j) {
-          const float f = ex2((mx[j] - g[j]) * kLog2e);
-          s[j] *= f;
-          acc[j] *= f;
-          mx[j] = g[j];
-        }
-        finish();
-      }
-    } else {
-      // the second pass over a long row, for a
-      float s2[V] = {}, acc2[V] = {};
-      exps(mx, s2, acc2);
-      store_a(it.c);
     }
+    float g[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) g[j] = mx[j];
+    group_reduce<true>(g, seat);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float f = ex2((mx[j] - g[j]) * kLog2e);
+      s[j] *= f;
+      acc[j] *= f;
+      mx[j] = g[j];
+    }
+  }
+  group_reduce<false>(s, seat);
+  group_reduce<false>(acc, seat);
+#pragma unroll
+  for (int j = 0; j < V; ++j) inv[j] = 1.f / fmaxf(s[j], 1e-30f);
+  if (STORE_A) {
+    if (chunks <= 1) {
+      store_a(0, inv);
+    } else {
+      // a second read of the long row for a
+      for (int c = 0; c < chunks; ++c) {
+        float s2[V] = {}, acc2[V] = {};
+        load_chunk(c);
+        exps(mx, s2, acc2);
+        store_a(c, inv);
+      }
+    }
+  }
+  if (active && t == 0) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc[j] *= inv[j];
+    store<V>(out + r * H + h, acc);
   }
 }
 
@@ -584,41 +421,15 @@ inline int launch_fwd(const void* el, const void* er, const void* mask,
   const int need = HV * (Kp > per_lane ? (Kp + per_lane - 1) / per_lane : 1);
   int lanes = 1;
   while (lanes < need && lanes < 32) lanes *= 2;
-  if (R == 0) return (int)cudaSuccess;
-  const void* kernel =
-      vec ? (const void*)attention_fwd_kernel<4, DROP, STORE_A>
-          : (const void*)attention_fwd_kernel<1, DROP, STORE_A>;
-  // a persistent grid: as many blocks as the SMs hold at once, or fewer
-  // when the row groups run out.  The SM count and the blocks an SM holds
-  // are looked up once per device.
-  constexpr int kMaxDevices = 64;
-  static int resident[2][kMaxDevices] = {};
-  const int smem = kWarps * warp_smem_bytes(DROP);
-  int dev = 0;
-  cudaGetDevice(&dev);
-  int& slots = resident[vec][dev % kMaxDevices];
-  if (slots == 0) {
-    int sms = 0, per_sm = 0;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         smem);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
-                                                  smem);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    slots = sms * per_sm;
-    if (slots == 0) return (int)cudaErrorInvalidConfiguration;
-  }
-  const long long groups = ((long long)R + 32 / lanes - 1) / (32 / lanes);
-  const int blocks = (int)std::min<long long>(slots,
-                                              (groups + kWarps - 1) / kWarps);
+  const long long warps = ((long long)R + 32 / lanes - 1) / (32 / lanes);
+  const int blocks = (int)((warps + kWarps - 1) / kWarps);
   cudaStream_t s = (cudaStream_t)stream;
   if (vec) {
-    attention_fwd_kernel<4, DROP, STORE_A><<<blocks, kThreads, smem, s>>>(
+    attention_fwd_kernel<4, DROP, STORE_A><<<blocks, kThreads, 0, s>>>(
         (const float*)el, (const float*)er, (const uint8_t*)mask,
         (const float*)dm, (float*)out, (float*)a, R, Kp, H, lanes, slope);
   } else {
-    attention_fwd_kernel<1, DROP, STORE_A><<<blocks, kThreads, smem, s>>>(
+    attention_fwd_kernel<1, DROP, STORE_A><<<blocks, kThreads, 0, s>>>(
         (const float*)el, (const float*)er, (const uint8_t*)mask,
         (const float*)dm, (float*)out, (float*)a, R, Kp, H, lanes, slope);
   }

@@ -37,6 +37,8 @@ from .segment import masked_softmax
 KERNELS = ("attention_fwd", "attention_fwd_infer", "attention_bwd",
            "attention_fwd_drop", "attention_bwd_drop")
 launch_counts = {name: 0 for name in KERNELS}
+# the forward kernels hold a row's head vectors in one warp's lanes
+FWD_MAX_HEADS = 32
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -113,11 +115,14 @@ def _launch(name: str, *args) -> None:
     launch_counts[name] += 1
 
 
-def _check_inputs(el, er, mask, dm):
+def _check_inputs(el, er, mask, dm, forward=False):
     if el.dim() != 3:
         raise ValueError(f"attention kernel: el' must be (R, Kp, H), got "
                          f"shape {tuple(el.shape)}")
     R, Kp, H = el.shape
+    if forward and H > FWD_MAX_HEADS:
+        raise ValueError(f"attention forward kernel: at most "
+                         f"{FWD_MAX_HEADS} heads, got H={H}")
     dev = el.device
     if dev.type != "cuda":
         raise ValueError(f"attention kernel needs CUDA tensors, got {dev}")
@@ -134,7 +139,7 @@ def attention_fwd(el: torch.Tensor, er: torch.Tensor, mask: torch.Tensor,
                   drop_mask: Optional[torch.Tensor] = None):
     """Forward kernel -> (out (R, H), a (R, Kp, H)); ``a`` holds the
     probabilities before dropout (the backward's residual)."""
-    R, Kp, H = _check_inputs(el, er, mask, drop_mask)
+    R, Kp, H = _check_inputs(el, er, mask, drop_mask, forward=True)
     out = torch.empty((R, H), dtype=torch.float32, device=el.device)
     a = torch.empty_like(el)
     ptrs = [el.data_ptr(), er.data_ptr(), mask.data_ptr()]
@@ -153,7 +158,7 @@ def attention_fwd_infer(el: torch.Tensor, er: torch.Tensor,
                         ) -> torch.Tensor:
     """Forward kernel without the residual -> out (R, H), for calls that
     need no gradient."""
-    R, Kp, H = _check_inputs(el, er, mask, None)
+    R, Kp, H = _check_inputs(el, er, mask, None, forward=True)
     out = torch.empty((R, H), dtype=torch.float32, device=el.device)
     with torch.cuda.device(el.device):
         _launch("attention_fwd_infer", el.data_ptr(), er.data_ptr(),
