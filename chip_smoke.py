@@ -11,7 +11,8 @@ device, phase by phase, one JSON line per phase:
   kernels    each attention kernel at the main path's shapes and at shapes
              that reach its other routes (H % 4 != 0, a long row, a
              misaligned el'), against its plain torch version on the same
-             inputs (out, the residual a, both gradients, and the
+             inputs (out, the residual a, both gradients through autograd
+             and from the backward kernel alone on the same a, and the
              inference forward under no_grad), with times and the
              memory/compute bound
   reference  a tiny stream trained and evaluated by the port on the GPU
@@ -183,17 +184,24 @@ def phase_kernels(torch, attention):
             # the forward kernel's residual: the softmax before dropout
             a = attention.attention_fwd(el_k.detach(), er, mask, SLOPE,
                                         dmask)[1]
-            # plain version on the same inputs
+            # the backward kernel alone, on that residual
+            d_el_k, d_er_k = attention.attention_bwd(el_k.detach(), er, mask,
+                                                     a, grad, SLOPE, dmask)
+            # plain versions on the same inputs
             el_p = el.clone().requires_grad_(True)
             er_p = er.clone().requires_grad_(True)
             out_p = attention.attention_core_reference(el_p, er_p, mask,
                                                        SLOPE, dmask)
-            out_p.backward(grad, retain_graph=True)
+            out_p.backward(grad)
+            d_el_p, d_er_p = attention.attention_bwd_reference(
+                el, er, mask, a, grad, SLOPE, dmask)
             checks = {fwd: [("out", out_k.detach(), out_p.detach(),
                              FWD_TOL), ("a", a, probs, FWD_TOL)],
                       bwd: [("d_el", el_k.grad, el_p.grad, GRAD_TOL),
-                            ("d_er", er_k.grad, er_p.grad, GRAD_TOL)]}
-            zeros = [out_k, el_k.grad, er_k.grad, a]
+                            ("d_er", er_k.grad, er_p.grad, GRAD_TOL),
+                            ("d_el_direct", d_el_k, d_el_p, GRAD_TOL),
+                            ("d_er_direct", d_er_k, d_er_p, GRAD_TOL)]}
+            zeros = [out_k, el_k.grad, er_k.grad, a, d_el_k, d_er_k]
             if not drop:                   # the route that eval takes
                 before = attention.launch_counts[infer]
                 with torch.no_grad():
@@ -232,14 +240,17 @@ def phase_kernels(torch, attention):
                 with torch.no_grad():
                     attention.attention_core_reference(el, er, mask, SLOPE, d)
 
-            g_c = grad.contiguous()
+            def plain_bwd(d=dmask, a=a):
+                with torch.no_grad():
+                    attention.attention_bwd_reference(el, er, mask, a, grad,
+                                                      SLOPE, d)
+
             timed = {
                 fwd: (lambda: attention.attention_fwd(el, er, mask, SLOPE,
                                                       dmask), plain_fwd),
-                bwd: (lambda: attention.attention_bwd(el, er, mask, a, g_c,
+                bwd: (lambda: attention.attention_bwd(el, er, mask, a, grad,
                                                       SLOPE, dmask),
-                      lambda: torch.autograd.grad(out_p, (el_p, er_p), grad,
-                                                  retain_graph=True))}
+                      plain_bwd)}
             if not drop:
                 timed[infer] = (lambda: attention.attention_fwd_infer(
                     el, er, mask, SLOPE), plain_fwd)
@@ -252,7 +263,7 @@ def phase_kernels(torch, attention):
                 results[name].update(dict(
                     shape=[R, Kp, H], ms=ms, plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes))
-            del out_p, el_p, er_p
+            del out_p, el_p, er_p, d_el_k, d_el_p
     for row in rows:
         emit(dict(phase="kernels", **row))
     for name in attention.KERNELS:

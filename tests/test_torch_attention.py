@@ -2,7 +2,8 @@
 against the JAX package's: the plain torch version against the jnp
 reference and the Pallas kernels (interpret mode), forward and both
 gradients, with and without the same injected drop mask, and the forward
-under no_grad; the choice of the inference route (no residual).
+under no_grad; the plain backward from the residual against the Pallas
+backward kernels; the choice of the inference route (no residual).
 
 Tolerance 1e-5 (abs and rel) on the forward and 1e-4 on the gradients,
 fp32 on both sides: the softmax and the Kp-long sums run in another order
@@ -90,6 +91,30 @@ def test_plain_matches_jax(R, Kp, H, masked, drop, against):
         np.testing.assert_allclose(a, b, rtol=tol, atol=tol, err_msg=name)
 
 
+@pytest.mark.parametrize("drop", [False, True], ids=["plain", "drop"])
+@pytest.mark.parametrize("R,Kp,H,masked", CASES)
+def test_backward_reference_matches_pallas(R, Kp, H, masked, drop):
+    """``attention_bwd_reference`` from the residual ``a`` against
+    ``jax.vjp`` of the Pallas path, which runs ``_bwd_kernel`` /
+    ``_bwd_kernel_drop`` in interpret mode."""
+    el, er, mask, g, dm = _inputs(R, Kp, H, seed=R + 3 * Kp,
+                                  masked_rows=masked, drop=drop)
+    _, vjp = jax.vjp(
+        lambda el, er: jax_attention_core(
+            el, er, jnp.asarray(mask), SLOPE, use_pallas=True,
+            interpret=True, drop_mask=None if dm is None else jnp.asarray(dm)),
+        jnp.asarray(el), jnp.asarray(er))
+    want = [np.asarray(x) for x in vjp(jnp.asarray(g))]
+    tel, ter, tmask = map(torch.from_numpy, (el, er, mask))
+    a = port.attention_probs_reference(tel, ter, tmask, SLOPE)
+    got = port.attention_bwd_reference(
+        tel, ter, tmask, a, torch.from_numpy(g), SLOPE,
+        None if dm is None else torch.from_numpy(dm))
+    for name, x, y in zip(("d_el", "d_er"), got, want):
+        np.testing.assert_allclose(x.numpy(), y, rtol=GRAD_TOL, atol=GRAD_TOL,
+                                   err_msg=name)
+
+
 @pytest.mark.parametrize("R,Kp,H,masked", CASES)
 def test_no_grad_matches_jax(R, Kp, H, masked):
     """``attention_core`` under no_grad on CPU tensors, which take the plain
@@ -173,6 +198,15 @@ def test_forward_wrappers_refuse_more_than_32_heads(drop):
             port.attention_fwd_infer(el, er, mask, SLOPE)
 
 
+@pytest.mark.parametrize("drop", [False, True], ids=["plain", "drop"])
+def test_backward_wrapper_refuses_more_than_32_heads(drop):
+    el, er, mask, g, dm = _inputs(4, 3, 33, seed=8, drop=drop)
+    el, er, mask, g = map(torch.from_numpy, (el, er, mask, g))
+    dm = None if dm is None else torch.from_numpy(dm)
+    with pytest.raises(ValueError, match="at most 32 heads"):
+        port.attention_bwd(el, er, mask, el, g, SLOPE, dm)
+
+
 def _cuda_leaf(x, misaligned):
     """``x`` on the card as a tensor that takes a gradient; with
     ``misaligned`` its data starts 4 bytes into a larger buffer."""
@@ -185,10 +219,12 @@ def _cuda_leaf(x, misaligned):
 
 CUDA_CASES = [
     # (R, Kp, H, el' misaligned): the float4 route; the float route with a
-    # row longer than one chunk; the float route forced by alignment
+    # row longer than one chunk; the float route forced by alignment; the
+    # float route on a short row
     pytest.param(64, 43, 8, False, id="Kp43"),
     pytest.param(40, 200, 3, False, id="H3_Kp200"),
     pytest.param(64, 43, 8, True, id="misaligned"),
+    pytest.param(999, 17, 3, False, id="H3_Kp17"),
 ]
 
 
@@ -234,3 +270,46 @@ def test_cuda_tensor_goes_through_kernel(route, R, Kp, H, misaligned):
         SLOPE)
     np.testing.assert_allclose(a.cpu().numpy(), probs.numpy(),
                                rtol=FWD_TOL, atol=FWD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,Kp,H,misaligned", CUDA_CASES)
+@pytest.mark.parametrize("drop", [False, True], ids=["plain", "drop"])
+def test_cuda_backward_kernel_matches_reference(drop, R, Kp, H, misaligned):
+    """The backward kernel alone against ``attention_bwd_reference`` on the
+    same residual ``a`` and output gradient."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    el, er, mask, g, dm = _inputs(R, Kp, H, seed=9, masked_rows=(3,),
+                                  drop=drop)
+    tel = _cuda_leaf(el, misaligned).detach()
+    ter, tmask, tg = (torch.from_numpy(x).to("cuda") for x in (er, mask, g))
+    tdm = None if dm is None else torch.from_numpy(dm).to("cuda")
+    a = port.attention_probs_reference(tel, ter, tmask, SLOPE)
+    want = port.attention_bwd_reference(tel, ter, tmask, a, tg, SLOPE, tdm)
+    got = port.attention_bwd(tel, ter, tmask, a, tg, SLOPE, tdm)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("d_el", "d_er"), got, want):
+        np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(),
+                                   rtol=GRAD_TOL, atol=GRAD_TOL, err_msg=name)
+        assert x[3].abs().max() == 0, f"{name}: fully masked row not zero"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["plain", "drop", "infer"])
+def test_cuda_kernels_take_no_root_slot(route):
+    """R = 0 (an empty batch): every entry point launches nothing and
+    returns empty outputs, as the plain version does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    el = torch.zeros((0, 43, 8), device="cuda", requires_grad=True)
+    er = torch.zeros((0, 8), device="cuda", requires_grad=True)
+    mask = torch.zeros((0, 43), dtype=torch.bool, device="cuda")
+    dm = torch.ones((0, 43, 8), device="cuda") if route == "drop" else None
+    with torch.set_grad_enabled(route != "infer"):
+        out = port.attention_core(el, er, mask, SLOPE, dm)
+    assert out.shape == (0, 8)
+    if route != "infer":
+        out.sum().backward()
+        assert el.grad.shape == el.shape and er.grad.shape == er.shape
+    torch.cuda.synchronize()

@@ -57,7 +57,7 @@
 //   (max, sum, out) per lane, merged across lanes at the end; only a
 //   second read of the row for a.
 // - H is at most 32 (kMaxHeads), so a row's head vectors fit one warp;
-//   the entry points refuse a larger H with cudaErrorInvalidValue.
+//   every entry point refuses a larger H with cudaErrorInvalidValue.
 // Instruction count is the second limit at these shapes: about 12
 // instructions per element, so branches, guarded loads, expf and the
 // select of leaky are all kept out of the inner loops.
@@ -70,10 +70,30 @@
 // attention_fwd_infer is the same kernel without the store of a: at an
 // eval chunk that halves the bytes moved.
 //
-// Backward: one thread per (r, h) reads el' in its (R, Kp, H) layout, so
-// the 8 heads of a root are 8 neighbouring floats and a warp reads whole
-// 32-byte sectors at each k; two passes over the row (the second from
-// L1/L2).
+// Backward design.  With gd = g * dm (dm = 1 without dropout):
+//
+//     s[r,h]      = sum_k a gd el'
+//     dx[r,k,h]   = leaky'(el' + er) * a * (gd el' - s), 0 where masked
+//     d_el'[r,k,h] = dx + a gd,        d_er[r,h] = sum_k dx
+//
+// It reads el', a (and dm) once and writes d_el' once: 26.2 MB at the train
+// batch, 34.7 MB with dm, so bytes bound it (7.8 and 10.4 us at
+// 3.35 TB/s), at about 14 float ops an element.  It takes the forward's
+// seats: a row on the fewest lanes that hold its el', a (and dm) in
+// bwd_lane_floats floats of each a lane, head vector l % W of lane l at
+// columns t, t + G, ..., float4s when H % 4 == 0 and every float pointer
+// is 16-byte aligned.  Every load of the lane is issued first, unguarded
+// and clamped; the lane's partial s is finished by the xor shuffles of its
+// head vector; then dx and d_el' are formed in registers, d_el' stored
+// with the forward's float4 pattern, and the partial sums of dx reduced
+// the same way for d_er.  One pass over memory; no max or exp is needed.
+// A row longer than 32 lanes of one chunk is swept twice: the chunks for
+// s, then each chunk again (from L2) for d_el' and d_er; s is a plain sum,
+// so no running merge.  With dm a lane holds three tensors, and s must be
+// reduced before any d_el' exists, so the row stays live across the
+// shuffles: bwd_lane_floats keeps the float4 variants under 96 registers,
+// more than 16 warps an SM.  At (Kp, H) = (43, 8): 16 lanes a row (32
+// with dm), 6 float4s of each tensor a lane (4 with dm).
 //
 // Fully masked rows (padded root slots) give out = 0, a = 0 and zero
 // gradients, as on the TPU: the max stays at -1e30, the sum at 0, and the
@@ -103,6 +123,14 @@ constexpr int kMaxHeads = 32;  // the forward's largest H: a warp's lanes
 // SM.  Chosen by timing 16, 24, 32 and 48 on the H100.
 __host__ __device__ constexpr int lane_floats(bool drop) {
   return drop ? 24 : 48;
+}
+
+// Floats of each of el', a (and dm) a lane holds in registers per chunk in
+// the backward.  Chosen by timing 12 to 48 at the train batch on the H100
+// (sweep_attention_bwd.py, PERF.md): the times differ by at most 7%, and
+// 48 spills in the float template; 16 and 24 spill in no variant.
+__host__ __device__ constexpr int bwd_lane_floats(bool drop) {
+  return drop ? 16 : 24;
 }
 
 // x >= 0 ? x : x * slope, as one min/max: for slope <= 1 (up) the larger
@@ -145,10 +173,29 @@ __device__ __forceinline__ void store(float* p, const float (&d)[V]) {
 // Where a lane sits in its row's segment of the warp: the segment has
 // `lanes` lanes (a power of two), G lanes hold each of its `width` head
 // vectors, the lane is the t-th of its head vector's, and `src` is the
-// lane with t == 0 of the same head vector.
+// lane with t == 0 of the same head vector, the hv-th of the column.
 struct Seat {
-  int lanes, width, G, t, src;
+  int lanes, width, G, t, src, hv;
 };
+
+// The seat of `lane` (0-31) in a segment of `lanes` lanes that holds
+// `width` head vectors of a column
+__device__ __forceinline__ Seat take_seat(int lane, int lanes, int width) {
+  const int lr = lane % lanes;
+  Seat s;
+  s.lanes = lanes;
+  s.width = width;  // <= lanes
+  s.G = lanes / width;
+  s.t = lr / width;
+  s.hv = lr % width;
+  s.src = lane - lr + s.hv;
+  return s;
+}
+
+// The first root slot of this thread's warp, when 32 / lanes share it
+__device__ __forceinline__ long long warp_first_row(int lanes) {
+  return ((long long)blockIdx.x * kWarps + threadIdx.x / 32) * (32 / lanes);
+}
 
 // Max (MAX) or sum of v over the G lanes of each head vector; every lane
 // gets the result.  A butterfly when the G lanes fill the segment (G and
@@ -190,20 +237,13 @@ attention_fwd_kernel(const float* __restrict__ el, const float* __restrict__ er,
                      float slope) {
   constexpr int NV = lane_floats(DROP) / V;  // vectors a lane holds per chunk
   const int lane = threadIdx.x % 32;
-  const long long first =
-      ((long long)blockIdx.x * kWarps + threadIdx.x / 32) * (32 / lanes);
+  const long long first = warp_first_row(lanes);
   if (first >= R) return;  // the whole warp leaves
   const long long r = first + lane / lanes;
-  const int lr = lane % lanes;
-  Seat seat;
-  seat.lanes = lanes;
-  seat.width = H / V;          // head vectors per column (<= lanes)
-  seat.G = lanes / seat.width;  // lanes per head vector
-  seat.t = lr / seat.width;
-  seat.src = lane - lr + lr % seat.width;
-  const int G = seat.G, t = seat.t;
+  const Seat seat = take_seat(lane, lanes, H / V);
+  const int G = seat.G, t = seat.t;  // lanes per head vector, rank in it
   const bool active = r < R && t < G;
-  const int h = (lr % seat.width) * V;  // first head of this lane
+  const int h = seat.hv * V;  // first head of this lane
   const int cols = G * NV;                    // columns per chunk
   const int chunks = (Kp + cols - 1) / cols;
   const bool up = slope <= 1.f;
@@ -357,52 +397,130 @@ attention_fwd_kernel(const float* __restrict__ el, const float* __restrict__ er,
   }
 }
 
-template <bool DROP>
+// V and DROP as in the forward; `lanes` as there, from bwd_lane_floats.
+template <int V, bool DROP>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_kernel(const float* __restrict__ el, const float* __restrict__ er,
                      const uint8_t* __restrict__ mask,
                      const float* __restrict__ dm, const float* __restrict__ a,
                      const float* __restrict__ g, float* __restrict__ d_el,
-                     float* __restrict__ d_er, int R, int Kp, int H,
+                     float* __restrict__ d_er, int R, int Kp, int H, int lanes,
                      float slope) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)R * H) return;
-  const long long r = idx / H;
-  const long long base = r * Kp * H + (idx - r * H);
-  const uint8_t* m = mask + r * Kp;
-  const float erv = er[idx];
-  const float gv = g[idx];
-
-  // out = sum_k a_k dm_k e_k:  da_k = g dm_k e_k;  softmax backward needs
-  // s = sum_k a_k da_k
-  float s = 0.f;
-  for (int k = 0; k < Kp; ++k) {
-    const long long o = base + (long long)k * H;
-    const float gd = DROP ? gv * dm[o] : gv;
-    s += a[o] * gd * el[o];
-  }
-
-  // dl_k = a_k (da_k - s); leaky backward on x = e + er; masked columns get
-  // no logit gradient; the direct term of d e_k is a_k dm_k g
-  float der = 0.f;
-  for (int k = 0; k < Kp; ++k) {
-    const long long o = base + (long long)k * H;
-    const float e = el[o];
-    const float ak = a[o];
-    const float gd = DROP ? gv * dm[o] : gv;
-    float dx = 0.f;
-    if (m[k]) {
-      const float dl = ak * (gd * e - s);
-      dx = (e + erv) >= 0.f ? dl : dl * slope;
+  constexpr int NV = bwd_lane_floats(DROP) / V;  // vectors per tensor
+  const int lane = threadIdx.x % 32;
+  const long long first = warp_first_row(lanes);
+  if (first >= R) return;  // the whole warp leaves
+  const long long r = first + lane / lanes;
+  const Seat seat = take_seat(lane, lanes, H / V);
+  const int G = seat.G, t = seat.t;
+  const bool active = r < R && t < G;
+  const int h = seat.hv * V;
+  const int cols = G * NV;
+  const int chunks = (Kp + cols - 1) / cols;
+  if (Kp == 0) {  // no column: d_er = 0 (and d_el' is empty)
+    if (active && t == 0) {
+      float z[V] = {};
+      store<V>(d_er + r * H + h, z);
     }
-    d_el[o] = dx + ak * gd;
-    der += dx;
+    return;
   }
-  d_er[idx] = der;
+  // unguarded loads, as in the forward: past the last root slot or column
+  // a lane re-reads the last one, and in[] keeps it out of s and the stores
+  const long long rl = r < R ? r : R - 1;
+  const long long row = rl * Kp * H + h;
+  const uint8_t* m = mask + rl * Kp;
+
+  float erv[V], gv[V];
+  load<V>(er + rl * H + h, erv);
+  load<V>(g + rl * H + h, gv);
+
+  // lane's columns of chunk c: k = c * cols + t + G * i, i < NV
+  float e[NV][V], p[NV][V], d[NV][V];  // el', a, dm
+  bool in[NV], ok[NV];                 // in the row; and not masked
+  auto load_chunk = [&](int c) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int k = c * cols + t + G * i;
+      const long long o = row + (long long)min(k, Kp - 1) * H;
+      load<V>(el + o, e[i]);
+      load<V>(a + o, p[i]);
+      if (DROP) load<V>(dm + o, d[i]);
+      in[i] = active & (k < Kp);
+      ok[i] = in[i] & (__ldg(m + min(k, Kp - 1)) != 0);
+    }
+  };
+  // the lane's part of s = sum_k a gd el'
+  auto chunk_s = [&](float(&s)[V]) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float gd = DROP ? gv[j] * d[i][j] : gv[j];
+        s[j] = fmaf(in[i] ? p[i][j] : 0.f, gd * e[i][j], s[j]);
+      }
+  };
+  // dx and d_el' of the chunk's columns; der += dx
+  auto chunk_grad = [&](int c, const float(&s)[V], float(&der)[V]) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      float de[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float gd = DROP ? gv[j] * d[i][j] : gv[j];
+        const float dl = p[i][j] * fmaf(gd, e[i][j], -s[j]);
+        const float dx = e[i][j] + erv[j] >= 0.f ? dl : dl * slope;
+        const float dxm = ok[i] ? dx : 0.f;
+        der[j] += dxm;
+        de[j] = fmaf(p[i][j], gd, dxm);
+      }
+      if (in[i]) store<V>(d_el + row + (long long)(c * cols + t + G * i) * H,
+                          de);
+    }
+  };
+
+  float s[V], der[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) s[j] = der[j] = 0.f;
+  if (chunks <= 1) {
+    // the row is in registers: s, then d_el' and the parts of d_er
+    load_chunk(0);
+    chunk_s(s);
+    group_reduce<false>(s, seat);
+    chunk_grad(0, s, der);
+  } else {
+    // a long row: a sweep for s, a second (from L2) for the gradients
+    for (int c = 0; c < chunks; ++c) {
+      load_chunk(c);
+      chunk_s(s);
+    }
+    group_reduce<false>(s, seat);
+    for (int c = 0; c < chunks; ++c) {
+      load_chunk(c);
+      chunk_grad(c, s, der);
+    }
+  }
+  group_reduce<false>(der, seat);
+  if (active && t == 0) store<V>(d_er + r * H + h, der);
 }
 
 inline bool aligned16(const void* p) {
   return ((uintptr_t)p & 15) == 0;
+}
+
+// Lanes per root slot: the fewest (a power of two, at most 32) that hold a
+// row of Kp columns of HV head vectors at per_lane vectors a lane, so that
+// the reductions take the fewest shuffles
+inline int lanes_for(int per_lane, int HV, int Kp) {
+  const int need = HV * (Kp > per_lane ? (Kp + per_lane - 1) / per_lane : 1);
+  int lanes = 1;
+  while (lanes < need && lanes < 32) lanes *= 2;
+  return lanes;
+}
+
+// Blocks of kThreads for R root slots, 32 / lanes a warp
+inline int blocks_for(int R, int lanes) {
+  const long long warps = ((long long)R + 32 / lanes - 1) / (32 / lanes);
+  return (int)((warps + kWarps - 1) / kWarps);
 }
 
 template <bool DROP, bool STORE_A>
@@ -414,15 +532,8 @@ inline int launch_fwd(const void* el, const void* er, const void* mask,
                    aligned16(out) && (!DROP || aligned16(dm)) &&
                    (!STORE_A || aligned16(a));
   const int V = vec ? 4 : 1;
-  const int HV = H / V;
-  // lanes per root slot: the fewest (a power of two) that hold the row in
-  // one chunk, so that the reductions take the fewest shuffles
-  const int per_lane = lane_floats(DROP) / V;
-  const int need = HV * (Kp > per_lane ? (Kp + per_lane - 1) / per_lane : 1);
-  int lanes = 1;
-  while (lanes < need && lanes < 32) lanes *= 2;
-  const long long warps = ((long long)R + 32 / lanes - 1) / (32 / lanes);
-  const int blocks = (int)((warps + kWarps - 1) / kWarps);
+  const int lanes = lanes_for(lane_floats(DROP) / V, H / V, Kp);
+  const int blocks = blocks_for(R, lanes);
   cudaStream_t s = (cudaStream_t)stream;
   if (vec) {
     attention_fwd_kernel<4, DROP, STORE_A><<<blocks, kThreads, 0, s>>>(
@@ -436,8 +547,31 @@ inline int launch_fwd(const void* el, const void* er, const void* mask,
   return (int)cudaGetLastError();
 }
 
-inline int blocks_for(int R, int H) {
-  return (int)(((long long)R * H + kThreads - 1) / kThreads);
+template <bool DROP>
+inline int launch_bwd(const void* el, const void* er, const void* mask,
+                      const void* dm, const void* a, const void* g,
+                      void* d_el, void* d_er, int R, int Kp, int H,
+                      float slope, void* stream) {
+  if (H < 1 || H > kMaxHeads) return (int)cudaErrorInvalidValue;
+  const bool vec = H % 4 == 0 && aligned16(el) && aligned16(er) &&
+                   (!DROP || aligned16(dm)) && aligned16(a) && aligned16(g) &&
+                   aligned16(d_el) && aligned16(d_er);
+  const int V = vec ? 4 : 1;
+  const int lanes = lanes_for(bwd_lane_floats(DROP) / V, H / V, Kp);
+  const int blocks = blocks_for(R, lanes);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vec) {
+    attention_bwd_kernel<4, DROP><<<blocks, kThreads, 0, s>>>(
+        (const float*)el, (const float*)er, (const uint8_t*)mask,
+        (const float*)dm, (const float*)a, (const float*)g, (float*)d_el,
+        (float*)d_er, R, Kp, H, lanes, slope);
+  } else {
+    attention_bwd_kernel<1, DROP><<<blocks, kThreads, 0, s>>>(
+        (const float*)el, (const float*)er, (const uint8_t*)mask,
+        (const float*)dm, (const float*)a, (const float*)g, (float*)d_el,
+        (float*)d_er, R, Kp, H, lanes, slope);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -467,24 +601,16 @@ int attention_fwd_drop(const void* el, const void* er, const void* mask,
 int attention_bwd(const void* el, const void* er, const void* mask,
                   const void* a, const void* g, void* d_el, void* d_er, int R,
                   int Kp, int H, float slope, void* stream) {
-  attention_bwd_kernel<false>
-      <<<blocks_for(R, H), kThreads, 0, (cudaStream_t)stream>>>(
-          (const float*)el, (const float*)er, (const uint8_t*)mask, nullptr,
-          (const float*)a, (const float*)g, (float*)d_el, (float*)d_er, R, Kp,
-          H, slope);
-  return (int)cudaGetLastError();
+  return launch_bwd<false>(el, er, mask, nullptr, a, g, d_el, d_er, R, Kp, H,
+                           slope, stream);
 }
 
 int attention_bwd_drop(const void* el, const void* er, const void* mask,
                        const void* dm, const void* a, const void* g,
                        void* d_el, void* d_er, int R, int Kp, int H,
                        float slope, void* stream) {
-  attention_bwd_kernel<true>
-      <<<blocks_for(R, H), kThreads, 0, (cudaStream_t)stream>>>(
-          (const float*)el, (const float*)er, (const uint8_t*)mask,
-          (const float*)dm, (const float*)a, (const float*)g, (float*)d_el,
-          (float*)d_er, R, Kp, H, slope);
-  return (int)cudaGetLastError();
+  return launch_bwd<true>(el, er, mask, dm, a, g, d_el, d_er, R, Kp, H, slope,
+                          stream);
 }
 
 }  // extern "C"

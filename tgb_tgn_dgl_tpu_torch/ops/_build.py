@@ -6,7 +6,8 @@ hash covers the source and the flags, and loaded with ``ctypes``.  The
 build runs at the first CUDA call that needs a library (or when
 ``build()`` is called, as chip_smoke.py does), never at import: a machine
 without ``nvcc`` imports and tests the package on the CPU.  Several
-sources build in parallel, one ``nvcc`` process each.
+sources build in parallel, one ``nvcc`` process each (``compile_all``,
+which the A/B and sweep scripts use for other versions of a source).
 """
 from __future__ import annotations
 
@@ -52,34 +53,42 @@ def target(name: str) -> Path:
     return BUILD / f"lib{name}-{digest[:16]}.so"
 
 
-def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
-    """Compile every stale library of ``names`` (default: all sources), all
-    ``nvcc`` processes started together.  Returns, per name, the seconds
-    it took (0 when already built) and the compiler's log (``ptxas``
-    registers and spills).  Raises with the compiler's output on failure."""
-    names = list(names) if names is not None else sources()
+def compile_all(jobs: Dict[str, tuple]) -> Dict[str, dict]:
+    """Compile each ``name: (source, library)`` with NVCC_FLAGS, all ``nvcc``
+    processes started together.  Returns, per name, the seconds it took and
+    the compiler's log (``ptxas`` registers and spills).  Raises with the
+    compiler's output on failure."""
     BUILD.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for name in names:
-        out = target(name)
-        if out.exists():
-            continue
+    procs = {}
+    for name, (src, out) in jobs.items():
+        out = Path(out)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True),
-                      tmp, out, time.perf_counter())
-    report = {n: {"seconds": 0.0, "log": ""} for n in names}
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out, time.perf_counter())
+    report = {}
     failed = []
-    for name, (proc, tmp, out, t0) in jobs.items():
+    for name, (proc, tmp, out, t0) in procs.items():
         log, _ = proc.communicate()
         report[name] = {"seconds": time.perf_counter() - t0, "log": log}
         if proc.returncode != 0:
-            failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
+            failed.append(f"{name} (exit {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return report
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
+    """Compile every stale library of ``names`` (default: all sources) with
+    ``compile_all``.  Returns its report, with 0 seconds and an empty log
+    for a library already built."""
+    names = list(names) if names is not None else sources()
+    report = {n: {"seconds": 0.0, "log": ""} for n in names}
+    report.update(compile_all({n: (CSRC / f"{n}.cu", target(n))
+                               for n in names if not target(n).exists()}))
     return report
 
 

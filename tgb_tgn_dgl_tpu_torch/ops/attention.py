@@ -37,8 +37,8 @@ from .segment import masked_softmax
 KERNELS = ("attention_fwd", "attention_fwd_infer", "attention_bwd",
            "attention_fwd_drop", "attention_bwd_drop")
 launch_counts = {name: 0 for name in KERNELS}
-# the forward kernels hold a row's head vectors in one warp's lanes
-FWD_MAX_HEADS = 32
+# the kernels hold a row's head vectors in one warp's lanes
+MAX_HEADS = 32
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -85,6 +85,24 @@ def attention_core_reference(el_prime: torch.Tensor, er: torch.Tensor,
     return torch.sum(a * el_prime, dim=1)
 
 
+def attention_bwd_reference(el_prime: torch.Tensor, er: torch.Tensor,
+                            mask: torch.Tensor, a: torch.Tensor,
+                            g: torch.Tensor, negative_slope: float,
+                            drop_mask: Optional[torch.Tensor] = None):
+    """Plain torch version of the backward kernels, from the residual ``a``
+    (the softmax before dropout) and the output gradient ``g`` (R, H) ->
+    (d_el' (R, Kp, H), d_er (R, H)): ``_bwd_kernel`` / ``_bwd_kernel_drop``
+    of tgb_tgn_dgl_tpu/ops/pallas_attention.py:68-85, :112-129."""
+    gd = g[:, None, :] if drop_mask is None else g[:, None, :] * drop_mask
+    da = gd * el_prime
+    s = torch.sum(a * da, dim=1, keepdim=True)
+    dl = a * (da - s)
+    x = el_prime + er[:, None, :]
+    dx = torch.where(x >= 0, dl, dl * negative_slope)
+    dx = torch.where(mask[..., None], dx, torch.zeros_like(dx))
+    return dx + a * gd, torch.sum(dx, dim=1)
+
+
 # ---------------------------------------------------------------- kernels
 def _fn(name: str):
     fn = _fns.get(name)
@@ -106,23 +124,28 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
             f"(contiguous={t.is_contiguous()})")
 
 
-def _launch(name: str, *args) -> None:
+def _launch(name: str, ptrs, R: int, Kp: int, H: int, slope: float) -> None:
+    """Launch entry point ``name`` on the current stream and count it.  An
+    empty batch (R = 0) launches nothing: a grid of no blocks is an
+    error."""
+    if R == 0:
+        return
     stream = torch.cuda.current_stream().cuda_stream
-    rc = _fn(name)(*args, stream)
+    rc = _fn(name)(*ptrs, R, Kp, H, float(slope), stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{rc}")
     launch_counts[name] += 1
 
 
-def _check_inputs(el, er, mask, dm, forward=False):
+def _check_inputs(el, er, mask, dm):
     if el.dim() != 3:
         raise ValueError(f"attention kernel: el' must be (R, Kp, H), got "
                          f"shape {tuple(el.shape)}")
     R, Kp, H = el.shape
-    if forward and H > FWD_MAX_HEADS:
-        raise ValueError(f"attention forward kernel: at most "
-                         f"{FWD_MAX_HEADS} heads, got H={H}")
+    if H > MAX_HEADS:
+        raise ValueError(f"attention kernel: at most {MAX_HEADS} heads, "
+                         f"got H={H}")
     dev = el.device
     if dev.type != "cuda":
         raise ValueError(f"attention kernel needs CUDA tensors, got {dev}")
@@ -139,7 +162,7 @@ def attention_fwd(el: torch.Tensor, er: torch.Tensor, mask: torch.Tensor,
                   drop_mask: Optional[torch.Tensor] = None):
     """Forward kernel -> (out (R, H), a (R, Kp, H)); ``a`` holds the
     probabilities before dropout (the backward's residual)."""
-    R, Kp, H = _check_inputs(el, er, mask, drop_mask, forward=True)
+    R, Kp, H = _check_inputs(el, er, mask, drop_mask)
     out = torch.empty((R, H), dtype=torch.float32, device=el.device)
     a = torch.empty_like(el)
     ptrs = [el.data_ptr(), er.data_ptr(), mask.data_ptr()]
@@ -148,8 +171,8 @@ def attention_fwd(el: torch.Tensor, er: torch.Tensor, mask: torch.Tensor,
         ptrs.append(drop_mask.data_ptr())
         name = "attention_fwd_drop"
     with torch.cuda.device(el.device):
-        _launch(name, *ptrs, out.data_ptr(), a.data_ptr(), R, Kp, H,
-                float(negative_slope))
+        _launch(name, ptrs + [out.data_ptr(), a.data_ptr()], R, Kp, H,
+                negative_slope)
     return out, a
 
 
@@ -158,12 +181,12 @@ def attention_fwd_infer(el: torch.Tensor, er: torch.Tensor,
                         ) -> torch.Tensor:
     """Forward kernel without the residual -> out (R, H), for calls that
     need no gradient."""
-    R, Kp, H = _check_inputs(el, er, mask, None, forward=True)
+    R, Kp, H = _check_inputs(el, er, mask, None)
     out = torch.empty((R, H), dtype=torch.float32, device=el.device)
     with torch.cuda.device(el.device):
-        _launch("attention_fwd_infer", el.data_ptr(), er.data_ptr(),
-                mask.data_ptr(), out.data_ptr(), R, Kp, H,
-                float(negative_slope))
+        _launch("attention_fwd_infer", [el.data_ptr(), er.data_ptr(),
+                                        mask.data_ptr(), out.data_ptr()],
+                R, Kp, H, negative_slope)
     return out
 
 
@@ -183,8 +206,8 @@ def attention_bwd(el: torch.Tensor, er: torch.Tensor, mask: torch.Tensor,
         ptrs.append(drop_mask.data_ptr())
         name = "attention_bwd_drop"
     with torch.cuda.device(el.device):
-        _launch(name, *ptrs, a.data_ptr(), g.data_ptr(), d_el.data_ptr(),
-                d_er.data_ptr(), R, Kp, H, float(negative_slope))
+        _launch(name, ptrs + [a.data_ptr(), g.data_ptr(), d_el.data_ptr(),
+                              d_er.data_ptr()], R, Kp, H, negative_slope)
     return d_el, d_er
 
 
