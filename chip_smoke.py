@@ -17,14 +17,27 @@ device, phase by phase, one JSON line per phase:
              memory/compute bound
   reference  a tiny stream trained and evaluated by the port on the GPU
              and on the CPU (plain versions) from the same weights
+  memory_reference
+             the same with the mailbox memory (frozen_memory: False):
+             losses, val MRR and the final MemoryState must agree
   train      Engine on the tgbl-wiki-shaped synthetic stream with
              configs/TGN.yml at full width: 8 Adam steps at the default
              dropout 0.2, then 2 steps of a second engine at dropout 0
   eval       the streaming val pass with all 999 negatives per event
-  counters   launches of each kernel during train + eval; all must be > 0
+  memory_train
+             Engine with configs/TGN-memory.yml (GRU mailbox memory) at
+             full width on the same stream: 8 Adam steps at dropout 0.2
+  memory_eval
+             its streaming val pass with all 999 negatives per event
+  counters   launches of each kernel on the frozen path (train + eval;
+             all five must be > 0) and on the memory path (memory_train +
+             memory_eval; the dropout pair and the inference forward must
+             be > 0), each path's counts set to 0 just before it
   profile    torch.profiler over 4 train steps and one val batch of a
-             fresh engine: wall time, host packing, device busy time and
-             the kernels that take it
+             fresh engine, frozen and memory: wall time, host packing,
+             device busy time and the kernels that take it; then each run
+             again under torch.cuda's sync debug mode, which must see one
+             synchronization only (the pass's one fetch of its metrics)
 
 Then the kernel table as one JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failure prints the phase's error
@@ -80,6 +93,9 @@ SHAPES = [("train", 6144, 43, 8, 0.02), ("eval", 40960, 43, 8, 0.02),
 MAIN_SHAPE = {"attention_fwd": "eval", "attention_fwd_infer": "eval",
               "attention_fwd_drop": "train", "attention_bwd": "train",
               "attention_bwd_drop": "train"}
+# what the memory path's train (dropout 0.2) and eval launch
+MEMORY_PATH_KERNELS = ("attention_fwd_drop", "attention_bwd_drop",
+                       "attention_fwd_infer")
 
 
 def emit(obj) -> None:
@@ -276,15 +292,21 @@ def phase_kernels(torch, attention):
 
 
 # ------------------------------------------------------------ engine runs
-def phase_reference(torch, pkg):
-    """Tiny stream, same weights, dropout 0: the GPU engine (kernels) and
-    the CPU engine (plain versions) must agree step by step."""
+REFERENCE_RAW = dict(sampling=[dict(neighbor=[5])],
+                     gnn=[dict(att_head=4, dim_out=32, dim_time=32)],
+                     train=[dict(batch_size=100, lr=1e-3, dropout=0.0,
+                                 att_dropout=0.0, eval_neg_chunk=3)])
+LOSS_TOL = 1e-4
+MRR_TOL = 1e-3
+MEM_TOL = 1e-4
+
+
+def _gpu_and_cpu(pkg, raw):
+    """Train one epoch and run the val pass of the tiny stream on the GPU
+    and on the CPU from the same seed (so the same weights); returns
+    {device: (per-step losses, val MRR, engine)}."""
     data = pkg.synthetic("tiny", num_edges=855, num_nodes=120, msg_dim=8,
                          num_neg=8, seed=1)
-    raw = dict(sampling=[dict(neighbor=[5])],
-               gnn=[dict(att_head=4, dim_out=32, dim_time=32)],
-               train=[dict(batch_size=100, lr=1e-3, dropout=0.0,
-                           att_dropout=0.0, eval_neg_chunk=3)])
     out = {}
     for dev in ("cuda", "cpu"):
         eng = pkg.Engine(data, pkg.parse_config_dict(raw), device=dev)
@@ -298,15 +320,48 @@ def phase_reference(torch, pkg):
 
         eng._train_step = rec
         eng.train_epoch()
-        out[dev] = (losses, eng.evaluate("val"))
-    (lg, mg), (lc, mc) = out["cuda"], out["cpu"]
+        out[dev] = (losses, eng.evaluate("val"), eng)
+    return out
+
+
+def _compare_runs(phase, out):
+    (lg, mg, _), (lc, mc, _) = out["cuda"], out["cpu"]
     loss_err = max(abs(a - b) for a, b in zip(lg, lc))
-    res = dict(phase="reference", steps=len(lg), losses_gpu=lg,
+    res = dict(phase=phase, steps=len(lg), losses_gpu=lg,
                losses_cpu=lc, max_loss_diff=loss_err, mrr_gpu=mg,
-               mrr_cpu=mc, loss_tol=1e-4, mrr_tol=1e-3)
+               mrr_cpu=mc, loss_tol=LOSS_TOL, mrr_tol=MRR_TOL)
+    ok = len(lg) == 6 and loss_err <= LOSS_TOL and abs(mg - mc) <= MRR_TOL
+    return res, ok
+
+
+def phase_reference(torch, pkg):
+    """Tiny stream, same weights, dropout 0: the GPU engine (kernels) and
+    the CPU engine (plain versions) must agree step by step."""
+    res, ok = _compare_runs("reference", _gpu_and_cpu(pkg, REFERENCE_RAW))
     emit(res)
-    if len(lg) != 6 or loss_err > 1e-4 or abs(mg - mc) > 1e-3:
+    if not ok:
         raise AssertionError("GPU and CPU engines disagree")
+
+
+def phase_memory_reference(torch, pkg):
+    """The reference phase with the mailbox memory: losses and MRR as
+    there, and the final MemoryState (after the val pass) equal: mem
+    within MEM_TOL, last_update and the mail fields exactly."""
+    raw = dict(REFERENCE_RAW, memory=[dict(dim_out=32, dim_time=32)],
+               train=[dict(REFERENCE_RAW["train"][0], frozen_memory=False)])
+    out = _gpu_and_cpu(pkg, raw)
+    res, ok = _compare_runs("memory_reference", out)
+    sg, sc = out["cuda"][2].mem_state, out["cpu"][2].mem_state
+    mem_err = float((sg.mem.cpu() - sc.mem).abs().max())
+    unequal = [f for f in sc._fields if f != "mem"
+               and not torch.equal(getattr(sg, f).cpu(), getattr(sc, f))]
+    res.update(max_mem_diff=mem_err, mem_tol=MEM_TOL,
+               unequal_state_fields=unequal,
+               mem_nonzero_rows=int((sc.mem.abs().sum(1) > 0).sum()),
+               valid_mail=int(sc.mail_valid.sum()))
+    emit(res)
+    if not ok or mem_err > MEM_TOL or unequal or res["valid_mail"] == 0:
+        raise AssertionError("GPU and CPU memory engines disagree")
 
 
 def phase_train(torch, pkg, data, cfg_path):
@@ -341,12 +396,48 @@ def phase_train(torch, pkg, data, cfg_path):
     return eng
 
 
-def phase_eval(torch, eng):
+def phase_memory_train(torch, pkg, data, cfg_path):
+    """TGN-memory.yml at full width: 8 Adam steps at dropout 0.2 through
+    apply_mail → embed → loss → backward → commit."""
+    import math
+    cfg = pkg.parse_config(cfg_path)
+    cfg.train.sanity_batches = 8
+    torch.cuda.reset_peak_memory_stats()
+    eng = pkg.Engine(data, cfg)
+    torch.cuda.synchronize()
+    stats = eng.train_epoch()
+    torch.cuda.synchronize()
+    tr = eng.last_epoch_trace
+    st = eng.mem_state
+    nonzero = int((st.mem.abs().sum(1) > 0).sum())
+    emit(dict(phase="memory_train", events=stats["events"],
+              steps=tr["batches"], loss_sum=stats["loss"], ap=stats["ap"],
+              auc=stats["auc"], seconds=tr["total_s"], pack_s=tr["pack_s"],
+              edges_per_s=stats["events"] / tr["total_s"],
+              mem_nonzero_rows=nonzero,
+              valid_mail=int(st.mail_valid.sum()),
+              width=dict(D=cfg.gnn.dim_out, H=cfg.gnn.att_head,
+                         K=cfg.sampling.num_neighbors,
+                         batch=cfg.train.batch_size, msg=data.msg_dim,
+                         memory_dim=eng.mem_cfg.memory_dim,
+                         time_dim=eng.mem_cfg.time_dim,
+                         gru_input=eng.mem_cfg.msg_dim,
+                         mailbox=eng.mem_cfg.mailbox_size,
+                         updater=eng.mem_cfg.updater),
+              peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30))
+    if not math.isfinite(stats["loss"]):
+        raise AssertionError("non-finite memory training loss")
+    if nonzero == 0:
+        raise AssertionError("the memory is still all zeros after training")
+    return eng
+
+
+def phase_eval(torch, eng, phase="eval"):
     t0 = time.perf_counter()
     mrr = eng.evaluate("val")
     torch.cuda.synchronize()
     tr = eng.last_eval_trace
-    emit(dict(phase="eval", split="val", negatives=int(eng.data.val_ns.shape[1]),
+    emit(dict(phase=phase, split="val", negatives=int(eng.data.val_ns.shape[1]),
               events=int(eng.data.val_mask.sum()), mrr=mrr,
               seconds=time.perf_counter() - t0, pack_s=tr["pack_s"],
               chunks=tr["chunks"]))
@@ -378,15 +469,34 @@ def _profiled(torch, fn):
     kernels = [r for r in rows if not r[0].startswith(("Memcpy", "Memset"))]
     busy = sum(t for _, t, _ in kernels) / 1e6
     top = [dict(name=k[:90], device_ms=t / 1e3, calls=n)
-           for k, t, n in sorted(kernels, key=lambda r: -r[1])[:10]]
+           for k, t, n in sorted(kernels, key=lambda r: -r[1])[:15]]
     return wall, busy, copies, top
 
 
-def phase_profile(torch, pkg, data, cfg_path):
+def _sync_sites(torch, fn):
+    """Run ``fn`` with torch.cuda's sync debug mode warning; return the
+    file:line of each operation that waited for the device."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+            if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+def phase_profile(torch, pkg, data, cfg_path, path):
     """Where the time goes: a traced run of 4 train steps and of the first
-    val batch (all its negative chunks) on a fresh engine.  The kernel
+    val batch (all its negative chunks) on a fresh engine of ``path``
+    (frozen or memory).  The kernel
     busy share is the summed kernel time over the wall time; one minus it
-    is the device's idle share (copies run on their own engine)."""
+    is the device's idle share (copies run on their own engine).  A run
+    that waits for the device more than once (its one metrics fetch)
+    fails: the host would stall on the device there."""
     import dataclasses
     cfg = pkg.parse_config(cfg_path)
     cfg.train.sanity_batches = 4
@@ -400,11 +510,16 @@ def phase_profile(torch, pkg, data, cfg_path):
         wall, busy, copies, top = _profiled(torch, fn)
         trace = (eng.last_epoch_trace if what.startswith("train")
                  else eng.last_eval_trace)
-        emit(dict(phase="profile", run=what, wall_s=wall,
+        syncs = _sync_sites(torch, fn)
+        emit(dict(phase="profile", path=path, run=what, wall_s=wall,
                   host_pack_s=trace["pack_s"], kernel_busy_s=busy,
                   h2d_copy_s=copies,
                   kernel_busy_share=None if busy is None else busy / wall,
+                  syncs=len(syncs), sync_sites=sorted(set(syncs)),
                   top_kernels=top))
+        if len(syncs) > 1:
+            raise AssertionError(f"{path} {what} waited for the device "
+                                 f"{len(syncs)} times: {sorted(set(syncs))}")
 
 
 def main() -> int:
@@ -448,23 +563,40 @@ def main() -> int:
         kres = phase_kernels(torch, attention)
         phase = "reference"
         phase_reference(torch, pkg)
+        phase = "memory_reference"
+        phase_memory_reference(torch, pkg)
         phase = "train"
         data = synthetic("tgbl-wiki")
+        cfgs = os.path.join(root, "tgb_tgn_dgl_tpu_torch", "configs")
+        cfg_path = os.path.join(cfgs, "TGN.yml")
+        mem_cfg_path = os.path.join(cfgs, "TGN-memory.yml")
         attention.reset_launch_counts()
-        cfg_path = os.path.join(root, "tgb_tgn_dgl_tpu_torch", "configs",
-                                "TGN.yml")
         eng = phase_train(torch, pkg, data, cfg_path)
         phase = "eval"
         phase_eval(torch, eng)
+        frozen_counts = dict(attention.launch_counts)
+        del eng
+        phase = "memory_train"
+        attention.reset_launch_counts()
+        eng = phase_memory_train(torch, pkg, data, mem_cfg_path)
+        phase = "memory_eval"
+        phase_eval(torch, eng, "memory_eval")
+        memory_counts = dict(attention.launch_counts)
+        del eng
         phase = "counters"
-        counts = dict(attention.launch_counts)
-        emit(dict(phase="counters", launches=counts))
-        idle = [k for k, v in counts.items() if v == 0]
+        counts = {k: frozen_counts[k] + memory_counts[k]
+                  for k in attention.KERNELS}
+        emit(dict(phase="counters", frozen=frozen_counts,
+                  memory=memory_counts, launches=counts))
+        idle = [k for k, v in frozen_counts.items() if v == 0]
+        idle += [f"{k} (memory path)" for k in MEMORY_PATH_KERNELS
+                 if memory_counts[k] == 0]
         if idle:
             raise AssertionError(f"kernels never launched on the main path: "
                                  f"{idle}")
         phase = "profile"
-        phase_profile(torch, pkg, data, cfg_path)
+        phase_profile(torch, pkg, data, cfg_path, "frozen")
+        phase_profile(torch, pkg, data, mem_cfg_path, "memory")
     except Exception as e:            # report the phase, then fail
         traceback.print_exc()
         emit(dict(phase=phase, ok=False, error=f"{type(e).__name__}: {e}"))

@@ -3,6 +3,9 @@ synthetic stream: batch 100, 4 heads, dim 32, dropout 0, the same
 (bridged) initial weights.  One train epoch is 6 Adam steps (599 train
 events); then a streaming val pass with 8 negatives in chunks of 3, so
 the column-chunk protocol's state advance on the last chunk is exercised.
+Both with the frozen all-ones memory and with the mailbox memory
+(``frozen_memory: False``, GRU, one slot), where every ``MemoryState``
+field is compared too: ``mem`` within 1e-4, the rest exactly.
 
 Tolerances: per-step loss and every parameter within 1e-4 abs+rel after 6
 steps (fp32 both sides; Adam divides by sqrt(v) and so amplifies the
@@ -16,7 +19,8 @@ import torch
 from tgb_tgn_dgl_tpu.data.dataset import synthetic
 from tgb_tgn_dgl_tpu.engine.train import Engine as JaxEngine
 from tgb_tgn_dgl_tpu.utils.config import parse_config_dict as jax_config
-from tgb_tgn_dgl_tpu_torch.bridge import params_from_jax, params_to_jax
+from tgb_tgn_dgl_tpu_torch.bridge import (memory_state_from_jax,
+                                          params_from_jax, params_to_jax)
 from tgb_tgn_dgl_tpu_torch.data.dataset import synthetic as port_synthetic
 from tgb_tgn_dgl_tpu_torch.engine.train import Engine
 from tgb_tgn_dgl_tpu_torch.utils.config import parse_config_dict
@@ -30,6 +34,7 @@ RAW = dict(
                 eval_neg_chunk=3)],
 )
 JAX_ONLY = dict(fuse_steps=1, eval_slot_unique=False)
+MEMORY = dict(frozen_memory=False)
 
 
 def _data(mod):
@@ -42,18 +47,21 @@ def _record_losses(engine, out):
 
     def wrapped(*args):
         res = step(*args)
-        out.append(float(np.asarray(res[-4] if isinstance(engine, JaxEngine)
-                                    else res[0])))
+        out.append(float(np.asarray(res[-4])) if isinstance(engine, JaxEngine)
+                   else float(res[0]))
         return res
 
     engine._train_step = wrapped
 
 
-@pytest.fixture(scope="module")
-def lockstep():
-    jraw = dict(RAW, train=[dict(RAW["train"][0], **JAX_ONLY)])
-    jeng = JaxEngine(_data(synthetic), jax_config(jraw))
-    peng = Engine(_data(port_synthetic), parse_config_dict(RAW),
+def _with_train(raw, **train):
+    return dict(raw, train=[dict(raw["train"][0], **train)])
+
+
+def _run_lockstep(raw):
+    jeng = JaxEngine(_data(synthetic), jax_config(_with_train(raw,
+                                                             **JAX_ONLY)))
+    peng = Engine(_data(port_synthetic), parse_config_dict(raw),
                   device="cpu")
     peng.model.load_state_dict(params_from_jax(jeng.params))
     jl, pl = [], []
@@ -66,7 +74,24 @@ def lockstep():
                 pstats=pstats)
 
 
-def test_losses_match_per_step(lockstep):
+@pytest.fixture(scope="module")
+def lockstep():
+    return _run_lockstep(RAW)
+
+
+def _memory_raw(**train):
+    return dict(_with_train(RAW, **MEMORY, **train),
+                memory=[dict(dim_out=32, dim_time=32)])
+
+
+@pytest.fixture(scope="module")
+def memory_lockstep():
+    """The mailbox-memory engines after the train epoch; the val pass is
+    run by ``test_memory_val_mrr_and_state_match``."""
+    return _run_lockstep(_memory_raw())
+
+
+def _assert_losses_match(lockstep):
     assert len(lockstep["pl"]) == 6
     np.testing.assert_allclose(lockstep["pl"], lockstep["jl"], rtol=TOL,
                                atol=TOL)
@@ -77,7 +102,11 @@ def test_losses_match_per_step(lockstep):
     assert lockstep["pstats"]["events"] == lockstep["jstats"]["events"]
 
 
-def test_params_match_after_six_steps(lockstep):
+def test_losses_match_per_step(lockstep):
+    _assert_losses_match(lockstep)
+
+
+def _assert_params_match(lockstep):
     got = params_to_jax(lockstep["peng"].model.state_dict())
 
     def walk(a, b, path):
@@ -89,6 +118,102 @@ def test_params_match_after_six_steps(lockstep):
                                    err_msg=path)
 
     walk(got, lockstep["jeng"].params, "")
+    assert got.keys() == lockstep["jeng"].params.keys()
+
+
+def test_params_match_after_six_steps(lockstep):
+    _assert_params_match(lockstep)
+
+
+def _assert_mem_state_match(peng, jeng, when):
+    got, want = peng.mem_state, memory_state_from_jax(jeng.mem_state)
+    for f in want._fields:
+        a, b = getattr(got, f).cpu().numpy(), getattr(want, f).numpy()
+        assert a.dtype == b.dtype, (when, f)
+        if f == "mem":
+            np.testing.assert_allclose(a, b, rtol=TOL, atol=TOL,
+                                       err_msg=f"{when}: {f}")
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=f"{when}: {f}")
+
+
+def test_memory_losses_match_per_step(memory_lockstep):
+    _assert_losses_match(memory_lockstep)
+
+
+def test_memory_params_match_after_six_steps(memory_lockstep):
+    assert "memory" in memory_lockstep["jeng"].params
+    _assert_params_match(memory_lockstep)
+
+
+def test_memory_state_matches_after_epoch(memory_lockstep):
+    st = memory_lockstep["peng"].mem_state
+    assert st.mail_valid.any() and st.mem.abs().max() > 0
+    _assert_mem_state_match(memory_lockstep["peng"], memory_lockstep["jeng"],
+                            "after the train epoch")
+
+
+def test_memory_val_mrr_and_state_match(memory_lockstep):
+    jeng, peng = memory_lockstep["jeng"], memory_lockstep["peng"]
+    jm = jeng.evaluate("val")
+    pm = peng.evaluate("val")
+    assert 0.0 < pm <= 1.0
+    assert abs(pm - jm) <= MRR_TOL, (pm, jm)
+    _assert_mem_state_match(peng, jeng, "after the val pass")
+
+
+def test_memory_epoch_restarts_from_zero_state(memory_lockstep):
+    """A second train epoch starts from a reset state: its first step's
+    read set sees no mail, so every read row is zero."""
+    eng = Engine(_data(port_synthetic),
+                 parse_config_dict(_memory_raw(sanity_batches=1)),
+                 device="cpu")
+    eng.model.load_state_dict(memory_lockstep["peng"].model.state_dict())
+    eng.mem_state = memory_lockstep["peng"].mem_state
+    seen = []
+    apply = eng._apply_mail
+
+    def spy(pack):
+        rows, lu = apply(pack)
+        seen.append((rows.abs().max().item(), lu.abs().max().item()))
+        return rows, lu
+
+    eng._apply_mail = spy
+    eng.train_epoch()
+    assert seen == [(0.0, 0.0)]
+
+
+@pytest.mark.cuda
+def test_cuda_memory_engine_matches_cpu():
+    """The mailbox-memory engine on the GPU (attention kernels) against
+    the same engine on the CPU (plain versions), same weights, dropout 0:
+    losses 1e-4, val MRR 1e-3, the MemoryState (mem 1e-4, the rest
+    exact)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from tgb_tgn_dgl_tpu_torch.ops import attention
+    out = {}
+    for dev in ("cuda", "cpu"):
+        eng = Engine(_data(port_synthetic), parse_config_dict(_memory_raw()),
+                     device=dev)
+        losses = []
+        _record_losses(eng, losses)
+        attention.reset_launch_counts()
+        eng.train_epoch()
+        mrr = eng.evaluate("val")
+        out[dev] = (losses, mrr, eng.mem_state, dict(attention.launch_counts))
+    (lg, mg, sg, counts), (lc, mc, sc, _) = out["cuda"], out["cpu"]
+    assert len(lg) == 6
+    np.testing.assert_allclose(lg, lc, rtol=TOL, atol=TOL)
+    assert abs(mg - mc) <= MRR_TOL, (mg, mc)
+    for f in sc._fields:
+        a, b = getattr(sg, f).cpu().numpy(), getattr(sc, f).numpy()
+        if f == "mem":
+            np.testing.assert_allclose(a, b, rtol=TOL, atol=TOL)
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=f)
+    for name in ("attention_fwd", "attention_bwd", "attention_fwd_infer"):
+        assert counts[name] > 0, name
 
 
 def test_val_mrr_matches(lockstep):
@@ -109,13 +234,46 @@ def test_engine_needs_cuda_unless_asked_for_cpu():
         Engine(_data(port_synthetic), parse_config_dict(RAW))
 
 
-@pytest.mark.parametrize("train", [dict(frozen_memory=False),
-                                   dict(compute_dtype="bfloat16")],
-                         ids=["memory", "bf16"])
-def test_engine_refuses_unported_config(train):
-    raw = dict(RAW, train=[dict(RAW["train"][0], **train)])
-    with pytest.raises(NotImplementedError):
+@pytest.mark.parametrize("section,knobs,name", [
+    ("gnn", dict(arch="identity"), "gnn.arch"),
+    ("train", dict(compute_dtype="bfloat16"), "compute_dtype"),
+    ("train", dict(remat=True, **MEMORY), "train.remat"),
+    ("gnn", dict(message_mode="vector"), "message_mode"),
+    ("gnn", dict(layer=2), "gnn.layer")],
+    # "memory": the mailbox memory runs, its remat knob does not
+    ids=["jodie", "bf16", "memory", "vector", "layers"])
+def test_engine_refuses_unported_config(section, knobs, name):
+    raw = dict(RAW, **{section: [dict(RAW[section][0], **knobs)]})
+    with pytest.raises(NotImplementedError, match=name):
         Engine(_data(port_synthetic), parse_config_dict(raw), device="cpu")
+
+
+def test_memory_yml_parses_like_jax_and_builds():
+    """The port's configs/TGN-memory.yml holds the JAX package's values;
+    Engine builds the GRU memory from it (GRU input 2D + F + D_t) and,
+    without a GPU, refuses to run unless asked for the CPU."""
+    import dataclasses
+    from pathlib import Path
+    from tgb_tgn_dgl_tpu.utils.config import parse_config as jax_parse
+    from tgb_tgn_dgl_tpu_torch.utils.config import parse_config
+    root = Path(__file__).resolve().parents[1]
+    cfg = parse_config(root / "tgb_tgn_dgl_tpu_torch/configs/TGN-memory.yml")
+    jcfg = jax_parse(root / "tgb_tgn_dgl_tpu/configs/TGN-memory.yml")
+    for sec in ("sampling", "memory", "gnn", "train"):
+        mine = dataclasses.asdict(getattr(cfg, sec))
+        theirs = dataclasses.asdict(getattr(jcfg, sec))
+        assert mine == {k: theirs[k] for k in mine}, sec
+    assert cfg.train.frozen_memory is False
+    data = _data(port_synthetic)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Engine(data, cfg)
+    eng = Engine(data, cfg, device="cpu")
+    assert eng.use_memory and eng.mem_cfg.msg_dim == 2 * 100 + 8 + 100
+    assert tuple(eng.model.memory.cell.w_ih.shape) == (308, 300)
+    assert eng.mem_state.mem.shape == (data.num_nodes + 1, 100)
+    assert any(n.startswith("memory.cell.") for n, _ in
+               eng.model.named_parameters())
 
 
 def test_sanity_batches_and_unknown_keys():

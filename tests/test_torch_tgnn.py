@@ -111,6 +111,64 @@ def test_forward_loss_and_grads_match_jax(M, const_ones):
     walk(grads, jgrads, "")
 
 
+def test_local_read_matches_jax():
+    """``local=True``: node features are the (U, D) rows of the batch's
+    read set, gathered through ``nbr_loc``/``root_loc`` (the mailbox
+    memory's read); the embedding, the logits and every gradient, the
+    rows' own included, match the JAX ``local=True`` branch."""
+    data, pack = _packs(3)
+    jcfg = JaxTGNNConfig(edge_feat_dim=F, hidden_dim=D, num_heads=H,
+                         feat_drop=0.0, attn_drop=0.0)
+    tcfg = TGNNConfig(edge_feat_dim=F, hidden_dim=D, num_heads=H,
+                      feat_drop=0.0, attn_drop=0.0)
+    params = jax_init_tgnn(jax.random.PRNGKey(5), jcfg)
+    U = pack.uniq_nid.shape[0]
+    rows = np.random.default_rng(8).normal(size=(U, D)).astype(np.float32)
+    jpack = pack.device()
+    feats = jnp.asarray(data.msg)
+
+    def jloss(p, r):
+        pos, neg = jax_tgnn_forward(p, jcfg, r, feats, jpack, train=True,
+                                    local=True)
+        return jax_bce_loss(pos, neg, jpack.ev_valid)
+
+    jl, (jgrads, jgrows) = jax.value_and_grad(jloss, argnums=(0, 1))(
+        params, jnp.asarray(rows))
+    jemb = jax_tgnn_embed(params, jcfg, jnp.asarray(rows), feats, jpack,
+                          train=False, local=True)
+
+    model = init_tgnn(tcfg)
+    model.load_state_dict(params_from_jax(params))
+    tpack = to_device(pack, "cpu")
+    trows = torch.from_numpy(rows).requires_grad_(True)
+    tfeats = torch.from_numpy(data.msg)
+    pos, neg = tgnn_forward(model, tcfg, trows, tfeats, tpack, train=True,
+                            local=True)
+    loss = bce_loss(pos, neg, tpack.ev_valid)
+    loss.backward()
+    with torch.no_grad():
+        emb = tgnn_embed(model, tcfg, trows, tfeats, tpack, train=False,
+                         local=True)
+    np.testing.assert_allclose(emb.numpy(), np.asarray(jemb), rtol=TOL,
+                               atol=TOL)
+    np.testing.assert_allclose(loss.item(), float(jl), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(trows.grad.numpy(), np.asarray(jgrows),
+                               rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    grads = params_to_jax({n: p.grad for n, p in model.named_parameters()})
+    for part in ("gat", "pred"):
+        for k, v in grads[part].items():
+            want = jgrads[part][k]
+            if isinstance(v, dict):
+                for kk in v:
+                    np.testing.assert_allclose(
+                        v[kk], np.asarray(want[kk]), rtol=GRAD_RTOL,
+                        atol=GRAD_ATOL, err_msg=f"{part}/{k}/{kk}")
+            else:
+                np.testing.assert_allclose(v, np.asarray(want),
+                                           rtol=GRAD_RTOL, atol=GRAD_ATOL,
+                                           err_msg=f"{part}/{k}")
+
+
 def test_unported_modes_raise():
     with pytest.raises(NotImplementedError, match="vector"):
         init_tgnn(TGNNConfig(edge_feat_dim=F, message_mode="vector"))

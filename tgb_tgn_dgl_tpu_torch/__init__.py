@@ -9,11 +9,15 @@ at first use into ``_build/``), on a CPU tensor its plain torch version.
 
 Layer map:
   data/      dataset, dependency blocking, host batch packer → device
-  ops/       time encoding, masked softmax, attention core + CUDA build
-  models/    TGNN (scalar mode, one layer), initializers, dropout
-  engine/    train/eval loop (frozen memory), evaluator, negatives
+  ops/       time encoding, masked softmax, GRU/RNN cells, attention
+             core + CUDA build
+  models/    TGNN (scalar mode, one layer), mailbox memory,
+             initializers, dropout
+  engine/    train/eval loop (frozen or mailbox memory), evaluator,
+             negatives
   utils/     TGL-schema config
-  bridge.py  JAX parameter pytree ⇄ torch state dict
+  bridge.py  JAX parameter pytree ⇄ torch state dict, JAX MemoryState
+             → the port's
 """
 
 __version__ = "0.1.0"

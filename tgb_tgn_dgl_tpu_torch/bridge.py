@@ -7,7 +7,13 @@ port holds it as ``nn.Linear`` with ``weight`` (out, in), so the bridge
 transposes.  Every other leaf keeps its shape and name (the time
 encoding's vector ``{"w", "b"}`` stays ``time.w``, ``time.b``).  Keys join with ``.``:
 ``{"gat": {"fc_node": {"w", "b"}, "attn_l"}}`` ⇄ ``gat.fc_node.weight``,
-``gat.fc_node.bias``, ``gat.attn_l``.
+``gat.fc_node.bias``, ``gat.attn_l``.  The mailbox memory's subtree
+``{"memory": {"time": {"w", "b"}, "cell": {"w_ih", "w_hh", "b_ih",
+"b_hh"}}}`` keeps its layout (the port's cells multiply from the right, as
+the JAX cells do): ``memory.time.w``, ``memory.cell.w_ih`` and so on.
+
+``memory_state_from_jax`` turns the JAX package's ``MemoryState`` into the
+port's, through numpy.
 """
 from __future__ import annotations
 
@@ -15,6 +21,8 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+from .models.memory import MemoryState
 
 
 def _is_linear(node) -> bool:
@@ -62,3 +70,10 @@ def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict:
             node = node.setdefault(k, {})
         node[leaf] = a
     return tree
+
+
+def memory_state_from_jax(state) -> MemoryState:
+    """The JAX ``MemoryState`` -> the port's ``MemoryState`` of CPU
+    tensors, field by field (both use float32, int32 and bool)."""
+    return MemoryState(**{f: torch.from_numpy(np.array(getattr(state, f)))
+                          for f in MemoryState._fields})

@@ -1,6 +1,8 @@
 """Training/eval engine on torch: the port's counterpart of
-tgb_tgn_dgl_tpu/engine/train.py, slimmed to the single-device
-frozen-memory path (the reference-parity configuration).
+tgb_tgn_dgl_tpu/engine/train.py, slimmed to the single-device TGN path,
+with the frozen all-ones memory (the reference-parity configuration,
+``train.frozen_memory: True``) or the mailbox memory with a GRU/RNN cell
+(``configs/TGN-memory.yml``, models/memory.py).
 
 Pipeline per batch: host packer (data/packer.py, numpy) → pinned
 non-blocking copy of the Pack to the device (``to_device``) → one train
@@ -15,14 +17,22 @@ pass per negative chunk.  Protocol fidelity:
     TGB/OGB tie rule, and the metric is the mean of per-batch means
     (epoch_utils.py:163);
   * train loss = BCE(pos→1) + BCE(neg→0), Adam, per-epoch AP/AUC
-    (epoch_utils.py:295-317).
+    (epoch_utils.py:295-317);
+  * with the mailbox memory, the ``MemoryState`` (``mem_state``) resets
+    with the neighbor cache at each train-epoch start and streams on
+    through eval (pyg_epoch_utils.py:11-16).  A train step is apply_mail
+    → embed → predict → loss → backward → commit of the detached rows
+    (one-step truncated BPTT) → Adam (tgb_tgn_dgl_tpu
+    engine/train.py:446-466); every eval chunk runs apply_mail → embed →
+    commit, and only the last chunk carries a write plan (:1261-1275).
 
 Metrics accumulate in small tensors on the device; each epoch or eval
 pass fetches one of them.  Entry points run on CUDA unless the caller
 passes ``device="cpu"``; there is no silent fallback to the CPU.
 
-Not ported yet (NotImplementedError): the mailbox memory, JODIE/DyRep,
-'uniform' sampling, bfloat16 compute, vector messages, gnn.layer > 1.
+Not ported yet (NotImplementedError): JODIE/DyRep (``gnn.arch``),
+``train.remat``, 'uniform' sampling, bfloat16 compute, vector messages,
+gnn.layer > 1.
 """
 from __future__ import annotations
 
@@ -35,6 +45,8 @@ import torch
 from ..data.dataset import TemporalData
 from ..data.dependency import dependency_aware_batch
 from ..data.packer import PackerConfig, StreamPacker, to_device
+from ..models.memory import (MemoryModelConfig, apply_mail, commit,
+                             init_memory, init_memory_state)
 from ..models.tgnn import (TGNNConfig, bce_loss, init_tgnn, tgnn_embed,
                            tgnn_forward)
 from ..utils.config import FrameworkConfig
@@ -65,8 +77,8 @@ def _unsupported(config: FrameworkConfig) -> Optional[str]:
     g, tr = config.gnn, config.train
     if g.arch != "transformer_attention":
         return f"gnn.arch={g.arch!r} (JODIE/DyRep)"
-    if config.memory.enabled and not tr.frozen_memory:
-        return "train.frozen_memory=False (the mailbox memory)"
+    if tr.remat:
+        return "train.remat=True"
     if config.sampling.strategy != "recent":
         return f"sampling.strategy={config.sampling.strategy!r}"
     if tr.compute_dtype != "float32":
@@ -75,8 +87,8 @@ def _unsupported(config: FrameworkConfig) -> Optional[str]:
 
 
 class Engine:
-    """Single-device engine for the flagship TGNN with frozen all-ones
-    memory."""
+    """Single-device engine for the flagship TGNN, with the frozen
+    all-ones memory or the mailbox memory (``mem_state``)."""
 
     def __init__(self, data: TemporalData, config: FrameworkConfig,
                  device=None):
@@ -88,6 +100,7 @@ class Engine:
             raise NotImplementedError(f"{missing} is not ported yet")
         tr, g = config.train, config.gnn
         drop = g.override_dropout
+        self.use_memory = config.memory.enabled and not tr.frozen_memory
         self.model_cfg = TGNNConfig(
             edge_feat_dim=data.msg_dim,
             hidden_dim=g.dim_out,
@@ -98,7 +111,7 @@ class Engine:
             attn_drop=tr.att_dropout if drop is None else drop,
             # reference-parity frozen path: memory ≡ ones forever
             # (model_utils.py:270-271), so the embedding reads no table
-            const_ones_memory=True,
+            const_ones_memory=not self.use_memory,
         )
         self.packer = StreamPacker(data.num_nodes, PackerConfig(
             num_neighbors=config.sampling.num_neighbors,
@@ -106,9 +119,25 @@ class Engine:
             max_intra_block=tr.max_intra_block,
             mailbox_size=config.memory.mailbox_size,
         ))
-        self.model = init_tgnn(
-            self.model_cfg,
-            torch.Generator().manual_seed(tr.seed)).to(self.device)
+        init_gen = torch.Generator().manual_seed(tr.seed)
+        self.model = init_tgnn(self.model_cfg, init_gen)
+        self.mem_cfg = self.mem_state = None
+        if self.use_memory:
+            m = config.memory
+            if m.dim_out != g.dim_out:
+                raise ValueError(
+                    f"memory.dim_out ({m.dim_out}) must equal gnn.dim_out "
+                    f"({g.dim_out}): the embedding reads memory rows as "
+                    f"node features")
+            self.mem_cfg = MemoryModelConfig(
+                num_nodes=data.num_nodes, raw_msg_dim=data.msg_dim,
+                memory_dim=m.dim_out, time_dim=m.dim_time,
+                mailbox_size=m.mailbox_size, updater=m.memory_update,
+                combine=m.mail_combine)
+            # drawn after the model's leaves (models/init.py)
+            self.model.memory = init_memory(self.mem_cfg, init_gen)
+            self.mem_state = init_memory_state(self.mem_cfg, self.device)
+        self.model = self.model.to(self.device)
         # counterpart of optax.adam(lr) (b1 0.9, b2 0.999, eps 1e-8)
         self.optimizer = torch.optim.Adam(self.model.parameters(), lr=tr.lr,
                                           betas=(0.9, 0.999), eps=1e-8)
@@ -148,16 +177,35 @@ class Engine:
             yield lo, hi, rows[lo:hi], blocks[lo:hi]
 
     # -------------------------------------------------------------- train
+    def _apply_mail(self, pack):
+        return apply_mail(self.model.memory, self.mem_cfg, self.mem_state,
+                          pack.uniq_nid, self.feats)
+
+    def _commit(self, pack, mem_rows, lu_rows) -> None:
+        self.mem_state = commit(
+            self.mem_cfg, self.mem_state, pack.uniq_nid, mem_rows.detach(),
+            lu_rows.detach(), pack.mw_node, pack.mw_slot, pack.mw_partner,
+            pack.mw_t, pack.mw_eid)
+
     def _train_step(self, pack, acc: torch.Tensor):
         """One Adam step on a device pack (tgb_tgn_dgl_tpu
-        engine/train.py:474-496); returns (loss, acc) with the running
+        engine/train.py:440-496); returns (loss, acc) with the running
         accumulator [Σ loss·n, Σ ap, Σ auc, batches] (:369-379)."""
         self.optimizer.zero_grad(set_to_none=True)
-        pos, neg = tgnn_forward(self.model, self.model_cfg, self.memory,
-                                self.feats, pack, train=True,
-                                generator=self.generator)
+        if self.use_memory:
+            mem_rows, lu_rows = self._apply_mail(pack)
+            pos, neg = tgnn_forward(self.model, self.model_cfg, mem_rows,
+                                    self.feats, pack, train=True,
+                                    generator=self.generator, local=True)
+        else:
+            pos, neg = tgnn_forward(self.model, self.model_cfg, self.memory,
+                                    self.feats, pack, train=True,
+                                    generator=self.generator)
         loss = bce_loss(pos, neg, pack.ev_valid)
         loss.backward()
+        if self.use_memory:
+            # after backward: the state's tensors are written in place
+            self._commit(pack, mem_rows, lu_rows)
         self.optimizer.step()
         with torch.no_grad():
             valid = pack.ev_valid
@@ -175,6 +223,9 @@ class Engine:
         mean AUC and the number of events."""
         d = self.data
         self.packer.reset_cache()
+        if self.use_memory:
+            # memory and cache reset together (pyg_epoch_utils.py:11-16)
+            self.mem_state = init_memory_state(self.mem_cfg, self.device)
         acc = torch.zeros(4, dtype=torch.float32, device=self.device)
         total = nb = 0
         pack_s = 0.0
@@ -260,8 +311,19 @@ class Engine:
                     src, dst, t, rows, blk, neg2d[:, cols], eval_mode=True,
                     insert=last, write_mail=last), self.device)
                 pack_s += time.perf_counter() - t1
-                embed = tgnn_embed(self.model, self.model_cfg, self.memory,
-                                   self.feats, pack, train=False)
+                if self.use_memory:
+                    # applied mail is cleared by the commit, so applying
+                    # and committing on every chunk is idempotent; only
+                    # the last chunk carries a write plan
+                    mem_rows, lu_rows = self._apply_mail(pack)
+                    embed = tgnn_embed(self.model, self.model_cfg, mem_rows,
+                                       self.feats, pack, train=False,
+                                       local=True)
+                    self._commit(pack, mem_rows, lu_rows)
+                else:
+                    embed = tgnn_embed(self.model, self.model_cfg,
+                                       self.memory, self.feats, pack,
+                                       train=False)
                 opt, pes = self._score_counts(embed, pack, opt, pes, mask_c)
                 chunks += 1
             valid = ar < (hi - lo)

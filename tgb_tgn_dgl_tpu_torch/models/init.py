@@ -12,7 +12,9 @@ Random streams.  The JAX package derives one dropout key per consumer
 random number from one ``torch.Generator`` in a fixed order instead:
 
   * init: ``Engine`` seeds a CPU generator with ``train.seed`` and draws
-    the leaves in the order of ``models/tgnn.init_tgnn``;
+    the leaves in the order of ``models/tgnn.init_tgnn``, then, with the
+    mailbox memory, the cell's ``w_ih``, ``w_hh``, ``b_ih``, ``b_hh``
+    (``models/memory.init_memory``);
   * dropout: ``Engine`` seeds a generator on its device with
     ``train.seed + 1``; each train step draws, in order, the masks of the
     source features, the root features, the edge features, the time

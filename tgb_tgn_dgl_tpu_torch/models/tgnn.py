@@ -21,6 +21,14 @@ identity residual and averaged over heads (model_utils.py:560-563,
 model_utils.py:270-271); each source paired with its own negatives (the
 reference's eval tile bug is not replicated).
 
+Node features come from one of three places: literal ones (the frozen
+memory), a full (N, D) table gathered by node id, or (``local=True``) the
+batch's (U, D) memory rows from ``models/memory.apply_mail``, gathered
+through the packer's ``nbr_loc``/``root_loc`` maps.  With the mailbox
+memory the model holds the memory's parameters as its ``memory``
+submodule, so they share the model's state dict and optimizer, as the
+JAX tree's ``params["memory"]`` does.
+
 Not ported yet (raise NotImplementedError): message_mode 'vector' and
 num_layers > 1.
 """
@@ -30,6 +38,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.nn.functional import embedding
 
 from ..data.packer import KIND_INVALID, KIND_SELF
 from ..ops.attention import attention_core
@@ -102,11 +111,15 @@ class EdgePredictor(nn.Module):
 
 
 class TGNN(nn.Module):
-    def __init__(self, time: TimeEncode, gat: GATLayer, pred: EdgePredictor):
+    """``memory`` (models/memory.Memory) is None for the frozen path."""
+
+    def __init__(self, time: TimeEncode, gat: GATLayer, pred: EdgePredictor,
+                 memory: Optional[nn.Module] = None):
         super().__init__()
         self.time = time
         self.gat = gat
         self.pred = pred
+        self.memory = memory
 
 
 def init_tgnn(cfg: TGNNConfig,
@@ -145,15 +158,17 @@ def _fused_attn_proj(lin: nn.Linear, attn: torch.Tensor):
 
 def tgnn_embed(model: TGNN, cfg: TGNNConfig, memory: Optional[torch.Tensor],
                feats_table: torch.Tensor, pack, *, train: bool,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+               generator: Optional[torch.Generator] = None,
+               local: bool = False) -> torch.Tensor:
     """Embed every root slot of a device pack: returns (R, D).
 
     One dense pass = TemporalEdgePreprocess (Δt encode ⊕ edge feat,
     model_utils.py:440-449) + EdgeGATConv (attention logits el+ee+er,
     leaky-relu, per-root softmax, weighted sum, residual, head mean,
     model_utils.py:565-612,688-697) across ALL dependency blocks at once.
-    ``memory`` is the (N, D) node memory; unused (may be None) when
-    ``cfg.const_ones_memory``."""
+    ``memory`` is the (N, D) node memory, or with ``local`` the (U, D)
+    rows of the batch's read set; unused (may be None) when
+    ``cfg.const_ones_memory`` and not ``local``."""
     check_supported(cfg)
     D = cfg.hidden_dim
     det = not train
@@ -175,7 +190,14 @@ def tgnn_embed(model: TGNN, cfg: TGNNConfig, memory: Optional[torch.Tensor],
     # consumer splits its projection into W[:F] @ ef + W[F:] @ te instead.
 
     # ---- node features --------------------------------------------------
-    if cfg.const_ones_memory:
+    if local:
+        # embedding() is memory[idx]; its backward reduces the duplicate
+        # indices in sorted segments, where indexing's backward adds them
+        # one after another: the padded columns all point at the trash
+        # row, about 10^5 duplicates a train batch
+        nf_src = embedding(pack.nbr_loc.long(), memory)   # (R, Kp, D)
+        nf_dst = embedding(pack.root_loc.long(), memory)  # (R, D)
+    elif cfg.const_ones_memory:
         nf_src = torch.ones((R, Kp, D), device=ef.device)
         nf_dst = torch.ones((R, D), device=ef.device)
     else:
@@ -209,11 +231,12 @@ def tgnn_embed(model: TGNN, cfg: TGNNConfig, memory: Optional[torch.Tensor],
 def tgnn_forward(model: TGNN, cfg: TGNNConfig,
                  memory: Optional[torch.Tensor], feats_table: torch.Tensor,
                  pack, *, train: bool,
-                 generator: Optional[torch.Generator] = None
+                 generator: Optional[torch.Generator] = None,
+                 local: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full forward: (pos_logits (B,), neg_logits (B,) or (B, M))."""
     embed = tgnn_embed(model, cfg, memory, feats_table, pack, train=train,
-                       generator=generator)
+                       generator=generator, local=local)
     return model.pred(embed[pack.ev_src_slot.long()],
                       embed[pack.ev_pos_slot.long()],
                       embed[pack.ev_neg_slot.long()])

@@ -1,15 +1,16 @@
 """Config system: the TGL 4-section YAML schema, typed and validated.
 
 The port's copy of tgb_tgn_dgl_tpu/utils/config.py.  It keeps the schema
-fields (so the same ``configs/TGN.yml`` parses in both packages) and the
-train knobs the frozen-memory slice reads.  The JAX package's transport
-and dispatch knobs (wire formats, fused steps, device-cache mode,
-slot-unique eval, remat, rng_impl, use_pallas) have no counterpart here:
-a config that sets one is refused as an unknown key rather than ignored.
+fields (so the same ``configs/TGN.yml`` and ``configs/TGN-memory.yml``
+parse in both packages) and the train knobs the port reads.  The JAX
+package's transport and dispatch knobs (wire formats, fused steps,
+device-cache mode, slot-unique eval, rng_impl, use_pallas) have no
+counterpart here: a config that sets one is refused as an unknown key
+rather than ignored.
 
-Knobs the schema carries but the port does not run yet (mailbox memory,
-vector messages, ``gnn.layer > 1``, 'uniform' sampling, bfloat16) are
-rejected by ``Engine`` with NotImplementedError.
+Knobs the schema carries but the port does not run yet (JODIE/DyRep,
+``train.remat``, vector messages, ``gnn.layer > 1``, 'uniform' sampling,
+bfloat16) are rejected by ``Engine`` with NotImplementedError.
 """
 from __future__ import annotations
 
@@ -97,6 +98,10 @@ class TrainConfig:
     # Debug short-circuit (reference epoch_utils.py:12-13,188-192): stop
     # each train epoch after N batches.  0 = off.
     sanity_batches: int = 0
+    # Recompute the embedding's grid residuals in the backward of the
+    # memory-mode step (the JAX package's jax.checkpoint knob).  Not
+    # ported: Engine refuses True.
+    remat: bool = False
 
 
 @dataclass
