@@ -7,7 +7,9 @@ Drives the port (tgb_tgn_dgl_tpu_torch; nothing of JAX) on one CUDA
 device, phase by phase, one JSON line per phase:
 
   device     the card (nvidia-smi name and power limit), TF32 off, the
-             kernels built from csrc/ with nvcc, and the build time
+             kernels built from csrc/ with nvcc and the stream packer
+             (csrc/packer.cpp) with g++ at once, the build times and the
+             g++ version
   kernels    each attention kernel at the main path's shapes and at shapes
              that reach its other routes (H % 4 != 0, a long row, a
              misaligned el'), against its plain torch version on the same
@@ -20,13 +22,24 @@ device, phase by phase, one JSON line per phase:
   memory_reference
              the same with the mailbox memory (frozen_memory: False):
              losses, val MRR and the final MemoryState must agree
+  wire       the native packer and the numpy packer in lockstep on the
+             tgbl-wiki-shaped stream (TGN.yml widths): 4 train batches as
+             dedup wires, one as a compact wire, then the first 2 and the
+             last negative chunk of the first val batch as eval-lean
+             dedup wires; each wire copied to the card and expanded there
+             must equal to_device of the numpy pack, field by field and
+             exactly.  Both packers' host ms per train batch and per eval
+             chunk (the native one at most 1/8 of the numpy one), and the
+             wire's bytes against the full grids'
   train      Engine on the tgbl-wiki-shaped synthetic stream with
-             configs/TGN.yml at full width: 8 Adam steps at the default
-             dropout 0.2, then 2 steps of a second engine at dropout 0
+             configs/TGN.yml at full width: the full train split (56 Adam
+             steps) at the default dropout 0.2, the first step's time
+             apart, then 2 steps of a second engine at dropout 0
   eval       the streaming val pass with all 999 negatives per event
   memory_train
              Engine with configs/TGN-memory.yml (GRU mailbox memory) at
-             full width on the same stream: 8 Adam steps at dropout 0.2
+             full width on the same stream: the full train split at
+             dropout 0.2
   memory_eval
              its streaming val pass with all 999 negatives per event
   counters   launches of each kernel on the frozen path (train + eval;
@@ -39,7 +52,14 @@ device, phase by phase, one JSON line per phase:
              again under torch.cuda's sync debug mode, which must see one
              synchronization only (the pass's one fetch of its metrics)
 
-Then the kernel table as one JSON line, the nvidia-smi line, and last
+Every phase that runs an Engine reports its host time getting device
+wires (``pack_s``: the wait for the packer thread, the submit of the next
+batch, the eval-lean post-pass, the copy's enqueue), its parts in the
+packer's fetch (``fetch_s``: the wait for the thread and the read of its
+buffers) and in ``wire_to_device`` (``copy_s``: pinning and enqueueing
+the copies), and its time dispatching the expansion and the model
+(``disp_s``).  Then the kernel table as one JSON line, the nvidia-smi
+line, and last
 ``{"ok": true, "device": {...}}``.  Any failure prints the phase's error
 and exits 1; without a CUDA device, or outside the repository, it exits 2
 and prints no result.
@@ -53,6 +73,7 @@ import subprocess
 import sys
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 
 SLOPE = 0.2
 KEEP = 0.8                    # att_dropout 0.2
@@ -324,12 +345,20 @@ def _gpu_and_cpu(pkg, raw):
     return out
 
 
+def _host_times(eng):
+    """The host time of an engine's last train epoch and eval pass."""
+    tr, ev = eng.last_epoch_trace, eng.last_eval_trace
+    return {f"{k}_{n}": t[n] for k, t in (("train", tr), ("eval", ev))
+            for n in ("pack_s", "fetch_s", "copy_s", "disp_s")}
+
+
 def _compare_runs(phase, out):
-    (lg, mg, _), (lc, mc, _) = out["cuda"], out["cpu"]
+    (lg, mg, eng), (lc, mc, _) = out["cuda"], out["cpu"]
     loss_err = max(abs(a - b) for a, b in zip(lg, lc))
     res = dict(phase=phase, steps=len(lg), losses_gpu=lg,
                losses_cpu=lc, max_loss_diff=loss_err, mrr_gpu=mg,
-               mrr_cpu=mc, loss_tol=LOSS_TOL, mrr_tol=MRR_TOL)
+               mrr_cpu=mc, loss_tol=LOSS_TOL, mrr_tol=MRR_TOL,
+               **_host_times(eng))
     ok = len(lg) == 6 and loss_err <= LOSS_TOL and abs(mg - mc) <= MRR_TOL
     return res, ok
 
@@ -364,13 +393,162 @@ def phase_memory_reference(torch, pkg):
         raise AssertionError("GPU and CPU memory engines disagree")
 
 
+def _fields_differ(torch, got, want):
+    """Fields of two DevicePacks that differ in dtype, shape or a value."""
+    return [f for f in want._fields
+            if getattr(got, f).dtype != getattr(want, f).dtype
+            or not torch.equal(getattr(got, f), getattr(want, f))]
+
+
+def phase_wire(torch, data, cfg_path):
+    """The native packer against the numpy packer, both fed the same
+    batches in lockstep from a fresh stream state: 4 train batches as
+    dedup wires and one as a compact wire (``wire_dedup: False``), then
+    the first 2 and the last negative chunk of the first val batch as
+    eval-lean dedup wires.  Each wire goes to the card through
+    ``wire_to_device`` and is expanded there; the result must equal
+    ``to_device`` of the numpy pack exactly.  Host ms per batch / chunk
+    of both packers (the native one with its eval-lean post-pass), which
+    must stand at 1/8 or less, bytes of wire against full grids, and the
+    host ms of each case's post-pass and of its ``wire_to_device``."""
+    from tgb_tgn_dgl_tpu_torch.data.dependency import dependency_aware_batch
+    from tgb_tgn_dgl_tpu_torch.data.native_packer import NativeStreamPacker
+    from tgb_tgn_dgl_tpu_torch.data.packer import (PackerConfig,
+                                                   StreamPacker, to_device)
+    from tgb_tgn_dgl_tpu_torch.engine.negatives import (FixedNegatives,
+                                                        NegLinkSamplerDest)
+    from tgb_tgn_dgl_tpu_torch.engine.train import eval_neg_chunk_size
+    from tgb_tgn_dgl_tpu_torch.ops.wire import (compact_wire,
+                                                eval_lean_dedup, expand_any,
+                                                nb_bucket_of, wire_nbytes,
+                                                wire_to_device)
+    from tgb_tgn_dgl_tpu_torch.utils.config import parse_config
+    cfg = parse_config(cfg_path)
+    B, K, N = cfg.train.batch_size, cfg.sampling.num_neighbors, data.num_nodes
+    pk = PackerConfig(num_neighbors=K, batch_size=B,
+                      max_intra_block=cfg.train.max_intra_block,
+                      mailbox_size=cfg.memory.mailbox_size)
+    plain, native = StreamPacker(N, pk), NativeStreamPacker(N, pk)
+    times = torch.from_numpy(data.t.astype("float32")).cuda()
+    cases, ms = [], {"numpy_train": [], "native_train": [],
+                     "numpy_chunk": [], "native_chunk": []}
+
+    def run(what, args, kw, native_pack, post=None):
+        t0 = time.perf_counter()
+        pack = plain.pack(*args, **kw)
+        t1 = time.perf_counter()
+        wire, iw = native_pack(*args, **kw)
+        tp = time.perf_counter()
+        if post is not None:
+            wire = post(wire)
+        t2 = time.perf_counter()
+        dev = wire_to_device(wire, "cuda")
+        t3 = time.perf_counter()
+        got = expand_any(dev, K, iw, N, times)
+        bad = _fields_differ(torch, got, to_device(pack, "cuda"))
+        cases.append(dict(what=what, wire=type(wire).__name__,
+                          eval_lean=getattr(wire, "cache_dt", 0) is None,
+                          wire_bytes=wire_nbytes(wire),
+                          full_bytes=wire_nbytes(pack.device()),
+                          post_ms=(t2 - tp) * 1e3,
+                          to_device_ms=(t3 - t2) * 1e3,
+                          fields_differ=bad))
+        return (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+    rows = data.train_mask.nonzero()[0]
+    blocks = dependency_aware_batch(data.src[rows], data.dst[rows], B)
+    sampler = NegLinkSamplerDest(data.unique_dst(), seed=cfg.train.seed)
+    for bi in range(5):
+        r, blk = rows[bi * B:(bi + 1) * B], blocks[bi * B:(bi + 1) * B]
+        dst = data.dst[r]
+        args = (data.src[r], dst, data.t[r], r, blk, sampler.sample(dst))
+        if bi < 4:
+            a, b = run(f"train batch {bi}", args, {},
+                       native.pack_wire_dedup)
+            ms["numpy_train"].append(a)
+            ms["native_train"].append(b)
+        else:
+            def packed_compact(*args, **kw):
+                wire, iw = native.pack_wire(*args, **kw)
+                return compact_wire(wire, N, iw, pk.mailbox_size), iw
+            run(f"train batch {bi}", args, {}, packed_compact)
+    rows = data.val_mask.nonzero()[0]
+    vblocks = dependency_aware_batch(data.src[rows], data.dst[rows], B)
+    r, blk = rows[:B], vblocks[:B]
+    neg, _ = FixedNegatives(data.val_ns).query_batch(0, B)
+    Mc = eval_neg_chunk_size(cfg, neg.shape[1], B)
+    n_chunks = -(-neg.shape[1] // Mc)
+    nbb = nb_bucket_of(vblocks)
+    for ci in (0, 1, n_chunks - 1):
+        last = ci == n_chunks - 1
+        args = (data.src[r], data.dst[r], data.t[r], r, blk,
+                neg[:, ci * Mc:(ci + 1) * Mc])
+        a, b = run(f"val chunk {ci} of {n_chunks}", args,
+                   dict(eval_mode=True, insert=last, write_mail=last),
+                   native.pack_wire_dedup,
+                   post=lambda w: eval_lean_dedup(w, blk, nbb))
+        ms["numpy_chunk"].append(a)
+        ms["native_chunk"].append(b)
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    ratio = {k: med[f"native_{k}"] / med[f"numpy_{k}"]
+             for k in ("train", "chunk")}
+    emit(dict(phase="wire", cases=cases, host_ms=ms,
+              median_host_ms=med, native_over_numpy=ratio,
+              max_ratio=1 / 8, chunk_negatives=Mc,
+              host_ms_is="the chip machine's CPU, this call"))
+    bad = [c["what"] for c in cases if c["fields_differ"]]
+    if bad:
+        raise AssertionError(f"device expansion differs from the numpy "
+                             f"pack: {bad}")
+    if not (cases[0]["wire"] == "DedupWire"
+            and cases[4]["wire"] == "CompactWire"
+            and all(c["eval_lean"] for c in cases[5:])):
+        raise AssertionError(f"unexpected wire formats: {cases}")
+    slow = [k for k, v in ratio.items() if v > 1 / 8]
+    if slow:
+        raise AssertionError(f"native packer over 1/8 of the numpy "
+                             f"packer's time: {slow} {ratio}")
+
+
+def _timed_first_step(torch, eng):
+    """Wrap ``eng._train_step`` so that the first step waits for the device
+    once; returns the record whose ``first_step_s`` counts from ``t0``
+    (set by the caller just before ``train_epoch``)."""
+    rec = {}
+    step = eng._train_step
+
+    def timed(pack, acc):
+        out = step(pack, acc)
+        if "first_step_s" not in rec:
+            torch.cuda.synchronize()
+            rec["first_step_s"] = time.perf_counter() - rec["t0"]
+        return out
+
+    eng._train_step = timed
+    return rec
+
+
+def _train_times(stats, tr, rec, batch):
+    rest = tr["total_s"] - rec["first_step_s"]
+    return dict(seconds=tr["total_s"], pack_s=tr["pack_s"],
+                fetch_s=tr["fetch_s"], copy_s=tr["copy_s"],
+                disp_s=tr["disp_s"],
+                edges_per_s=stats["events"] / tr["total_s"],
+                first_step_s=rec["first_step_s"],
+                after_first_step_edges_per_s=(stats["events"] - batch)
+                / max(rest, 1e-9))
+
+
 def phase_train(torch, pkg, data, cfg_path):
     import dataclasses
     cfg = pkg.parse_config(cfg_path)
-    cfg.train.sanity_batches = 8
+    cfg.train.sanity_batches = 0
     eng = pkg.Engine(data, cfg)
+    rec = _timed_first_step(torch, eng)
     torch.cuda.synchronize()
+    rec["t0"] = time.perf_counter()
     stats = eng.train_epoch()
+    torch.cuda.synchronize()
     tr = eng.last_epoch_trace
     cfg0 = dataclasses.replace(
         cfg, gnn=dataclasses.replace(cfg.gnn, override_dropout=0.0),
@@ -380,11 +558,11 @@ def phase_train(torch, pkg, data, cfg_path):
     tr0 = eng0.last_epoch_trace
     res = dict(phase="train", events=stats["events"], steps=tr["batches"],
                loss_sum=stats["loss"], ap=stats["ap"], auc=stats["auc"],
-               seconds=tr["total_s"], pack_s=tr["pack_s"],
-               edges_per_s=stats["events"] / tr["total_s"],
+               **_train_times(stats, tr, rec, cfg.train.batch_size),
                dropout0_steps=tr0["batches"], dropout0_loss_sum=stats0["loss"],
                dropout0_ap=stats0["ap"], dropout0_auc=stats0["auc"],
                dropout0_seconds=tr0["total_s"],
+               dropout0_pack_s=tr0["pack_s"], dropout0_disp_s=tr0["disp_s"],
                width=dict(D=cfg.gnn.dim_out, H=cfg.gnn.att_head,
                           K=cfg.sampling.num_neighbors,
                           batch=cfg.train.batch_size, msg=data.msg_dim),
@@ -397,14 +575,16 @@ def phase_train(torch, pkg, data, cfg_path):
 
 
 def phase_memory_train(torch, pkg, data, cfg_path):
-    """TGN-memory.yml at full width: 8 Adam steps at dropout 0.2 through
-    apply_mail → embed → loss → backward → commit."""
+    """TGN-memory.yml at full width: the full train split at dropout 0.2
+    through apply_mail → embed → loss → backward → commit."""
     import math
     cfg = pkg.parse_config(cfg_path)
-    cfg.train.sanity_batches = 8
+    cfg.train.sanity_batches = 0
     torch.cuda.reset_peak_memory_stats()
     eng = pkg.Engine(data, cfg)
+    rec = _timed_first_step(torch, eng)
     torch.cuda.synchronize()
+    rec["t0"] = time.perf_counter()
     stats = eng.train_epoch()
     torch.cuda.synchronize()
     tr = eng.last_epoch_trace
@@ -412,8 +592,8 @@ def phase_memory_train(torch, pkg, data, cfg_path):
     nonzero = int((st.mem.abs().sum(1) > 0).sum())
     emit(dict(phase="memory_train", events=stats["events"],
               steps=tr["batches"], loss_sum=stats["loss"], ap=stats["ap"],
-              auc=stats["auc"], seconds=tr["total_s"], pack_s=tr["pack_s"],
-              edges_per_s=stats["events"] / tr["total_s"],
+              auc=stats["auc"],
+              **_train_times(stats, tr, rec, cfg.train.batch_size),
               mem_nonzero_rows=nonzero,
               valid_mail=int(st.mail_valid.sum()),
               width=dict(D=cfg.gnn.dim_out, H=cfg.gnn.att_head,
@@ -440,7 +620,8 @@ def phase_eval(torch, eng, phase="eval"):
     emit(dict(phase=phase, split="val", negatives=int(eng.data.val_ns.shape[1]),
               events=int(eng.data.val_mask.sum()), mrr=mrr,
               seconds=time.perf_counter() - t0, pack_s=tr["pack_s"],
-              chunks=tr["chunks"]))
+              fetch_s=tr["fetch_s"], copy_s=tr["copy_s"],
+              disp_s=tr["disp_s"], chunks=tr["chunks"]))
     if not 0.0 < mrr <= 1.0:
         raise AssertionError(f"val MRR {mrr} outside (0, 1]")
 
@@ -512,7 +693,10 @@ def phase_profile(torch, pkg, data, cfg_path, path):
                  else eng.last_eval_trace)
         syncs = _sync_sites(torch, fn)
         emit(dict(phase="profile", path=path, run=what, wall_s=wall,
-                  host_pack_s=trace["pack_s"], kernel_busy_s=busy,
+                  host_pack_s=trace["pack_s"],
+                  host_fetch_s=trace["fetch_s"],
+                  host_copy_s=trace["copy_s"], host_disp_s=trace["disp_s"],
+                  kernel_busy_s=busy,
                   h2d_copy_s=copies,
                   kernel_busy_share=None if busy is None else busy / wall,
                   syncs=len(syncs), sync_sites=sorted(set(syncs)),
@@ -548,13 +732,19 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         t0 = time.perf_counter()
-        report = _build.build()
+        # g++ for the packer runs beside nvcc for the kernels
+        with ThreadPoolExecutor(1) as pool:
+            host = pool.submit(_build.build_host, "packer")
+            report = _build.build()
+            host = host.result()
         emit(dict(phase="device", kind=torch.cuda.get_device_name(0),
                   count=torch.cuda.device_count(), nvidia_smi=smi,
                   torch=torch.__version__, cuda=torch.version.cuda,
                   tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
                   tf32_cudnn=torch.backends.cudnn.allow_tf32,
                   build_s=time.perf_counter() - t0,
+                  packer_build_s=host["seconds"],
+                  cxx=_build.compiler_version(),
                   build={k: dict(seconds=v["seconds"],
                                  ptxas=[l for l in v["log"].splitlines()
                                         if "registers" in l or "spill" in l])
@@ -565,11 +755,13 @@ def main() -> int:
         phase_reference(torch, pkg)
         phase = "memory_reference"
         phase_memory_reference(torch, pkg)
-        phase = "train"
+        phase = "wire"
         data = synthetic("tgbl-wiki")
         cfgs = os.path.join(root, "tgb_tgn_dgl_tpu_torch", "configs")
         cfg_path = os.path.join(cfgs, "TGN.yml")
         mem_cfg_path = os.path.join(cfgs, "TGN-memory.yml")
+        phase_wire(torch, data, cfg_path)
+        phase = "train"
         attention.reset_launch_counts()
         eng = phase_train(torch, pkg, data, cfg_path)
         phase = "eval"

@@ -5,23 +5,33 @@ events); then a streaming val pass with 8 negatives in chunks of 3, so
 the column-chunk protocol's state advance on the last chunk is exercised.
 Both with the frozen all-ones memory and with the mailbox memory
 (``frozen_memory: False``, GRU, one slot), where every ``MemoryState``
-field is compared too: ``mem`` within 1e-4, the rest exactly.
+field is compared too: ``mem`` within 1e-4, the rest exactly.  Both
+engines pack with their native packer and ship dedup wires (eval-lean at
+eval); a third lockstep runs both with ``wire_dedup: False``, the
+compact wire.
 
 Tolerances: per-step loss and every parameter within 1e-4 abs+rel after 6
 steps (fp32 both sides; Adam divides by sqrt(v) and so amplifies the
 last-bit differences of small gradients); val MRR within 1e-3, since a
 rank can flip on a near-tie."""
+import itertools
+
 import numpy as np
 import pytest
 
 import torch
 
 from tgb_tgn_dgl_tpu.data.dataset import synthetic
+from tgb_tgn_dgl_tpu.data.native_packer import \
+    NativeStreamPacker as JaxNativePacker
 from tgb_tgn_dgl_tpu.engine.train import Engine as JaxEngine
 from tgb_tgn_dgl_tpu.utils.config import parse_config_dict as jax_config
 from tgb_tgn_dgl_tpu_torch.bridge import (memory_state_from_jax,
                                           params_from_jax, params_to_jax)
 from tgb_tgn_dgl_tpu_torch.data.dataset import synthetic as port_synthetic
+from tgb_tgn_dgl_tpu_torch.data.native_packer import NativeStreamPacker
+from tgb_tgn_dgl_tpu_torch.data.packer import PackerConfig, StreamPacker
+from tgb_tgn_dgl_tpu_torch.engine.negatives import NegLinkSamplerDest
 from tgb_tgn_dgl_tpu_torch.engine.train import Engine
 from tgb_tgn_dgl_tpu_torch.utils.config import parse_config_dict
 
@@ -54,6 +64,18 @@ def _record_losses(engine, out):
     engine._train_step = wrapped
 
 
+def _record_wires(engine, out):
+    """Each wire the port's engine expands, as (type, eval-lean)."""
+    expand = engine._expand
+
+    def wrapped(wire, iw):
+        out.append((type(wire).__name__,
+                    getattr(wire, "cache_dt", 0) is None))
+        return expand(wire, iw)
+
+    engine._expand = wrapped
+
+
 def _with_train(raw, **train):
     return dict(raw, train=[dict(raw["train"][0], **train)])
 
@@ -64,14 +86,15 @@ def _run_lockstep(raw):
     peng = Engine(_data(port_synthetic), parse_config_dict(raw),
                   device="cpu")
     peng.model.load_state_dict(params_from_jax(jeng.params))
-    jl, pl = [], []
+    jl, pl, wires = [], [], []
     _record_losses(jeng, jl)
     _record_losses(peng, pl)
+    _record_wires(peng, wires)
     jstats = jeng.train_epoch()
     pstats = peng.train_epoch()
     jstats = {k: jstats[k] for k in jstats.keys()}
     return dict(jeng=jeng, peng=peng, jl=jl, pl=pl, jstats=jstats,
-                pstats=pstats)
+                pstats=pstats, wires=wires)
 
 
 @pytest.fixture(scope="module")
@@ -216,15 +239,114 @@ def test_cuda_memory_engine_matches_cpu():
         assert counts[name] > 0, name
 
 
-def test_val_mrr_matches(lockstep):
+def _assert_val_mrr_matches(lockstep):
     jm = lockstep["jeng"].evaluate("val")
     pm = lockstep["peng"].evaluate("val")
     assert 0.0 < pm <= 1.0
     assert abs(pm - jm) <= MRR_TOL, (pm, jm)
     # the stream state advanced identically through the chunked pass
-    for a, b in zip(lockstep["peng"].packer.snapshot()[:4],
-                    lockstep["jeng"].packer.snapshot()[:4]):
+    for a, b in zip(lockstep["peng"].packer.snapshot(),
+                    lockstep["jeng"].packer.snapshot()):
         np.testing.assert_array_equal(a, b)
+
+
+def test_val_mrr_matches(lockstep):
+    _assert_val_mrr_matches(lockstep)
+
+
+def test_both_engines_pack_natively_and_ship_dedup_wires(lockstep):
+    """The JAX Engine's default transport, on both sides: the native
+    packer one batch ahead, dedup wires in training, eval-lean dedup wires
+    at eval (recorded here from the val pass of ``test_val_mrr_matches``
+    or run now)."""
+    jeng, peng = lockstep["jeng"], lockstep["peng"]
+    assert isinstance(jeng.packer, JaxNativePacker) and jeng._wire_dedup
+    assert isinstance(peng.packer, NativeStreamPacker) and peng._wire_dedup
+    assert lockstep["wires"][:6] == [("DedupWire", False)] * 6
+    if len(lockstep["wires"]) == 6:
+        peng.evaluate("val")
+    assert set(lockstep["wires"][6:]) == {("DedupWire", True)}
+    assert peng.last_eval_trace["chunks"] == len(lockstep["wires"]) - 6
+    # the packer's fetch and the copy are parts of getting the next wire
+    for tr in (peng.last_epoch_trace, peng.last_eval_trace):
+        assert tr["fetch_s"] > 0.0 and tr["copy_s"] > 0.0
+        assert tr["fetch_s"] + tr["copy_s"] <= tr["pack_s"] <= tr["total_s"]
+
+
+@pytest.fixture(scope="module")
+def compact_lockstep():
+    return _run_lockstep(_with_train(RAW, wire_dedup=False))
+
+
+def test_compact_wire_losses_match_per_step(compact_lockstep):
+    assert compact_lockstep["wires"] == [("CompactWire", False)] * 6
+    _assert_losses_match(compact_lockstep)
+
+
+def test_compact_wire_params_match_after_six_steps(compact_lockstep):
+    _assert_params_match(compact_lockstep)
+
+
+def test_compact_wire_val_mrr_matches(compact_lockstep):
+    _assert_val_mrr_matches(compact_lockstep)
+    assert set(compact_lockstep["wires"][6:]) == {("CompactWire", False)}
+
+
+def test_sanity_batches_pack_no_batch_past_the_limit():
+    """After ``sanity_batches=2`` the pack-ahead has packed exactly the two
+    batches: the stream state equals a numpy packer fed those two."""
+    data = _data(port_synthetic)
+    raw = _with_train(RAW, sanity_batches=2, max_intra_block=8)
+    eng = Engine(data, parse_config_dict(raw), device="cpu")
+    assert eng.train_epoch()["events"] == 200
+    ref = StreamPacker(data.num_nodes, PackerConfig(
+        num_neighbors=5, batch_size=100, max_intra_block=8))
+    sampler = NegLinkSamplerDest(data.unique_dst(), seed=0)
+    for _, _, rows, blk in itertools.islice(eng._iter_batches("train"), 2):
+        dst = data.dst[rows]
+        ref.pack(data.src[rows], dst, data.t[rows], rows, blk,
+                 sampler.sample(dst))
+    for a, b in zip(eng.packer.snapshot(), ref.snapshot()):
+        np.testing.assert_array_equal(a, b)
+    assert eng.packer.cur_e_id == 200
+
+
+@pytest.mark.cuda
+def test_cuda_expansion_matches_cpu():
+    """Wires copied to the GPU and expanded there equal the same wires
+    expanded on the CPU, field by field and exactly: dedup train wires,
+    eval-lean wires, and the compact wire."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tgb_tgn_dgl_tpu_torch.data.dependency import dependency_aware_batch
+    from tgb_tgn_dgl_tpu_torch.ops.wire import (compact_wire,
+                                                eval_lean_dedup, expand_any,
+                                                nb_bucket_of, wire_to_device)
+    data = _data(port_synthetic)
+    N, B = data.num_nodes, 100
+    cfg = PackerConfig(num_neighbors=5, batch_size=B, max_intra_block=32)
+    dedup = NativeStreamPacker(N, cfg)
+    plain = NativeStreamPacker(N, cfg)
+    times = torch.from_numpy(data.t.astype(np.float32))
+    blocks = dependency_aware_batch(data.src, data.dst, B)
+    rng = np.random.default_rng(0)
+    for bi, lo in enumerate(range(0, 500, B)):
+        rows = np.arange(lo, lo + B)
+        em = bi >= 3
+        neg = rng.integers(0, N, (B, 8) if em else B).astype(np.int32)
+        args = (data.src[rows], data.dst[rows], data.t[rows], rows,
+                blocks[rows], neg)
+        w, P = dedup.pack_wire_dedup(*args, eval_mode=em)
+        if em:
+            w = eval_lean_dedup(w, blocks[rows], nb_bucket_of(blocks))
+        pw, pP = plain.pack_wire(*args, eval_mode=em)
+        for wire, iw in ((w, P), (compact_wire(pw, N, pP, 1), pP)):
+            got = expand_any(wire_to_device(wire, "cuda"), 5, iw, N,
+                             times.cuda())
+            want = expand_any(wire_to_device(wire, "cpu"), 5, iw, N, times)
+            for f in want._fields:
+                a, b = getattr(got, f).cpu(), getattr(want, f)
+                assert a.dtype == b.dtype and torch.equal(a, b), (bi, f)
 
 
 def test_engine_needs_cuda_unless_asked_for_cpu():

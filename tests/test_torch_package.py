@@ -1,6 +1,7 @@
 """Package rules of the port (tgb_tgn_dgl_tpu_torch): it imports neither
-JAX nor the JAX package, builds nothing at import, and its CUDA source
-exports the entry points its wrappers call."""
+JAX nor the JAX package, builds nothing at import, compiles only its own
+sources (csrc/) into its own _build/, and its CUDA source exports the
+entry points its wrappers call."""
 import ast
 import re
 import subprocess
@@ -57,3 +58,29 @@ def test_import_builds_nothing():
     from tgb_tgn_dgl_tpu_torch.ops import _build
     assert _build.sources() == ["attention"]
     assert _build.target("attention").parent == PKG / "_build"
+
+
+def test_host_build_compiles_only_the_ports_sources(monkeypatch, tmp_path):
+    """The packer library builds from tgb_tgn_dgl_tpu_torch/csrc/packer.cpp
+    alone into the port's _build/, never from or into the JAX package's
+    csrc/; the compile command names no other source."""
+    from tgb_tgn_dgl_tpu_torch.ops import _build
+    assert _build.host_sources() == ["packer"]
+    assert _build.host_target("packer").parent == PKG / "_build"
+    lib = _build.host_library("packer")
+    assert Path(lib._name).parent == PKG / "_build"
+    seen = []
+
+    def fake_run(cmd, **kw):
+        seen.append(cmd)
+        Path(cmd[cmd.index("-o") + 1]).write_bytes(b"")
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(_build, "BUILD", tmp_path)
+    monkeypatch.setattr(_build, "CXX", "c++-probe")
+    monkeypatch.setattr(_build.subprocess, "run", fake_run)
+    _build.build_host("packer")
+    (cmd,) = seen
+    sources = [Path(a) for a in cmd if a.endswith((".cpp", ".cc", ".cu"))]
+    assert sources == [PKG / "csrc" / "packer.cpp"]
+    assert _build.host_target("packer").exists()

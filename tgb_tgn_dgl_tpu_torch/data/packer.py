@@ -2,6 +2,11 @@
 tgb_tgn_dgl_tpu/data/packer.py, numpy path only, plus the hand-over of a
 Pack to torch tensors on the device: ``to_device``).
 
+The Engine packs with the C++ twin of this packer
+(data/native_packer.py) and ships wires (ops/wire.py); ``StreamPacker``
+and ``to_device`` stay as the plain version that the tests and
+chip_smoke.py hold the native packer and the device expansion against.
+
 The crucial structural observation behind this framework: in the reference,
 the recency neighbor cache (neighbor_loader.py) and the per-node clock
 (``time_assoc``, model_utils.py:22,77-83) are *pure functions of the event
@@ -162,7 +167,11 @@ class PackerConfig:
     batch_size: int = 2000
     max_intra_block: Optional[int] = None   # P cap (None = exact)
     root_bucket_lo: int = 128
+    strategy: str = "recent"         # 'recent' | 'uniform' (TGL sampler knob)
     mailbox_size: int = 1            # S (config memory.mailbox_size)
+    seed: int = 0
+    # gnn.layer; the native packer (data/native_packer.py) runs 1 only
+    layers: int = 1
 
 
 class StreamPacker:

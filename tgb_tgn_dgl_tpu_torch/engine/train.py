@@ -4,10 +4,16 @@ with the frozen all-ones memory (the reference-parity configuration,
 ``train.frozen_memory: True``) or the mailbox memory with a GRU/RNN cell
 (``configs/TGN-memory.yml``, models/memory.py).
 
-Pipeline per batch: host packer (data/packer.py, numpy) → pinned
-non-blocking copy of the Pack to the device (``to_device``) → one train
-step (forward, BCE, backward, Adam) or, at eval, one embedding + scoring
-pass per negative chunk.  Protocol fidelity:
+Pipeline per batch, as the JAX Engine runs it by default: the native
+packer (data/native_packer.py, csrc/packer.cpp) packs the batch one
+batch (at eval one negative chunk) ahead on its own C++ thread into a
+``DedupWire`` (ops/wire.py; eval chunks narrowed by ``eval_lean_dedup``)
+→ pinned non-blocking copy of the wire to the device (``wire_to_device``)
+→ ``expand_dedup`` rebuilds the full ``DevicePack`` there with torch
+gathers → one train step (forward, BCE, backward, Adam) or, at eval, one
+embedding + scoring pass per negative chunk.  ``train.wire_dedup: False``
+packs synchronously into the compact wire (``train.wire_compact``) or the
+plain WirePack.  Protocol fidelity:
 
   * the neighbor cache resets at each train-epoch start, clocks persist
     (reference epoch_utils.py:175; time_assoc is never reset);
@@ -36,6 +42,7 @@ gnn.layer > 1.
 """
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Dict, Optional
 
@@ -44,11 +51,14 @@ import torch
 
 from ..data.dataset import TemporalData
 from ..data.dependency import dependency_aware_batch
-from ..data.packer import PackerConfig, StreamPacker, to_device
+from ..data.native_packer import make_stream_packer
+from ..data.packer import PackerConfig
 from ..models.memory import (MemoryModelConfig, apply_mail, commit,
                              init_memory, init_memory_state)
 from ..models.tgnn import (TGNNConfig, bce_loss, init_tgnn, tgnn_embed,
                            tgnn_forward)
+from ..ops.wire import (DedupWire, compact_wire, eval_lean_dedup, expand_any,
+                        nb_bucket_of, wire_to_device)
 from ..utils.config import FrameworkConfig
 from .evaluator import ap_auc, parse_eval_metric, rank_metric_from_counts
 from .negatives import FixedNegatives, NegLinkSamplerDest
@@ -113,12 +123,6 @@ class Engine:
             # (model_utils.py:270-271), so the embedding reads no table
             const_ones_memory=not self.use_memory,
         )
-        self.packer = StreamPacker(data.num_nodes, PackerConfig(
-            num_neighbors=config.sampling.num_neighbors,
-            batch_size=tr.batch_size,
-            max_intra_block=tr.max_intra_block,
-            mailbox_size=config.memory.mailbox_size,
-        ))
         init_gen = torch.Generator().manual_seed(tr.seed)
         self.model = init_tgnn(self.model_cfg, init_gen)
         self.mem_cfg = self.mem_state = None
@@ -138,12 +142,29 @@ class Engine:
             self.model.memory = init_memory(self.mem_cfg, init_gen)
             self.mem_state = init_memory_state(self.mem_cfg, self.device)
         self.model = self.model.to(self.device)
+        # the native packer; its library builds here at first use and a
+        # failed build raises (data/native_packer.py)
+        self.packer = make_stream_packer(data.num_nodes, PackerConfig(
+            num_neighbors=config.sampling.num_neighbors,
+            batch_size=tr.batch_size,
+            max_intra_block=tr.max_intra_block,
+            mailbox_size=config.memory.mailbox_size,
+            strategy=config.sampling.strategy,
+            seed=tr.seed,
+            layers=g.layer,
+        ))
+        self._wire_compact = bool(tr.wire_compact)
+        self._wire_dedup = bool(tr.wire_dedup)
         # counterpart of optax.adam(lr) (b1 0.9, b2 0.999, eps 1e-8)
         self.optimizer = torch.optim.Adam(self.model.parameters(), lr=tr.lr,
                                           betas=(0.9, 0.999), eps=1e-8)
         self.memory = None              # frozen all-ones: never gathered
         self.feats = torch.from_numpy(
             np.ascontiguousarray(data.msg, np.float32)).to(self.device)
+        # event times by global row: the eval-lean expansion reads edge
+        # times here instead of shipping Δt
+        self.times = torch.from_numpy(
+            np.ascontiguousarray(data.t, np.float32)).to(self.device)
         self.neg_sampler = NegLinkSamplerDest(data.unique_dst(), seed=tr.seed)
         # every dropout mask of every step comes from this generator, in
         # the order models/init.py documents
@@ -175,6 +196,103 @@ class Engine:
         for lo in range(0, len(rows), bs):
             hi = min(lo + bs, len(rows))
             yield lo, hi, rows[lo:hi], blocks[lo:hi]
+
+    # -------------------------------------------------------------- wires
+    def _pack_wire(self, args, kw):
+        """A WirePack of one batch, narrowed to a CompactWire when
+        ``train.wire_compact`` is on and the wire allows it (JAX
+        ``_maybe_compact``).  Returns (wire, intra_width)."""
+        wire, iw = self.packer.pack_wire(*args, **kw)
+        if self._wire_compact:
+            cw = compact_wire(wire, self.data.num_nodes, iw,
+                              self.config.memory.mailbox_size)
+            wire = wire if cw is None else cw
+        return wire, iw
+
+    def _pack_sync(self, args, kw):
+        """One batch packed on this thread: the dedup wire when it is on
+        and takes the batch, else ``_pack_wire``."""
+        out = (self.packer.pack_wire_dedup(*args, **kw)
+               if self._wire_dedup else None)
+        return out if out is not None else self._pack_wire(args, kw)
+
+    def _packed(self, jobs, tm):
+        """Yields (meta, (wire, intra_width)) for each job (meta, args, kw)
+        of ``jobs``, in order.  With the dedup wire the native packer runs
+        one job ahead on its C++ worker (JAX ``_prefetch_pipelined`` and
+        ``_eval_packed_chunks``): job i+1 is submitted before job i is
+        yielded, so it packs while the caller dispatches job i.  Submission
+        order is stream order, and the pending job is fetched before the
+        generator ends, so nothing past ``jobs`` is packed and the stream
+        state ends where the synchronous path leaves it.  ``tm["fetch_s"]``
+        gathers the time spent in the packer's fetch (the wait for the
+        worker and the read of its buffers)."""
+        if not self._wire_dedup:
+            for meta, args, kw in jobs:
+                yield meta, self._pack_sync(args, kw)
+            return
+
+        def fetch(job):
+            t0 = time.perf_counter()
+            out = self.packer.pack_wire_dedup_fetch()
+            tm["fetch_s"] += time.perf_counter() - t0
+            # None: P > 255 and the state untouched, so pack the same
+            # batch as a WirePack
+            return self._pack_wire(job[1], job[2]) if out is None else out
+
+        pend = None
+        for job in jobs:
+            ready = None if pend is None else fetch(pend)
+            submitted = self.packer.pack_wire_dedup_submit(*job[1], **job[2])
+            if ready is not None:
+                yield pend[0], ready
+            pend = job if submitted else None
+            if not submitted:
+                yield job[0], self._pack_sync(job[1], job[2])
+        if pend is not None:
+            yield pend[0], fetch(pend)
+
+    def _expand(self, wire, intra_width):
+        return expand_any(wire, self.config.sampling.num_neighbors,
+                          intra_width, self.data.num_nodes, self.times)
+
+    def _train_jobs(self):
+        """The train split's batches, or its first ``sanity_batches``."""
+        d = self.data
+        batches = self._iter_batches("train")
+        sanity = self.config.train.sanity_batches
+        if sanity:
+            batches = itertools.islice(batches, sanity)
+        for lo, hi, rows, blk in batches:
+            src, dst, t = d.src[rows], d.dst[rows], d.t[rows]
+            yield (lo, hi), (src, dst, t, rows, blk,
+                             self.neg_sampler.sample(dst)), {}
+
+    def _eval_jobs(self, split: str, fixed: FixedNegatives, B: int):
+        """One job per negative chunk of the column-chunk protocol (JAX
+        ``_eval_chunk_args``); meta = (lo, hi, blk, first, last, mask_c)
+        with mask_c the (B, Mc) mask of real negatives in pad+mask mode."""
+        d = self.data
+        for lo, hi, rows, blk in self._iter_batches(split):
+            src, dst, t = d.src[rows], d.dst[rows], d.t[rows]
+            neg, mask = fixed.query_batch(lo, hi)
+            neg2d = np.asarray(neg).reshape(len(rows), -1)
+            M = neg2d.shape[1]
+            mask2d = None
+            if mask is not None:
+                mask2d = np.zeros((B, M), bool)
+                mask2d[:len(rows)] = mask
+            Mc = eval_neg_chunk_size(self.config, M, hi - lo)
+            n_chunks = -(-M // Mc)
+            for ci in range(n_chunks):
+                last = ci == n_chunks - 1
+                cols = slice(ci * Mc, (ci + 1) * Mc)
+                mask_c = None if mask2d is None else mask2d[:, cols]
+                # the stream state (cache insert, mail writes, ring
+                # pointers) advances on the last chunk only
+                yield ((lo, hi, blk, ci == 0, last, mask_c),
+                       (src, dst, t, rows, blk, neg2d[:, cols]),
+                       dict(eval_mode=True, insert=last, write_mail=last))
 
     # -------------------------------------------------------------- train
     def _apply_mail(self, pack):
@@ -220,32 +338,42 @@ class Engine:
         ``train.sanity_batches`` batches; a batch past that limit is not
         packed, so the stream state stops where training stopped).
         Returns loss (Σ loss·n, as the JAX engine reports it), mean AP,
-        mean AUC and the number of events."""
-        d = self.data
+        mean AUC and the number of events.  ``last_epoch_trace`` holds
+        ``pack_s``, the time this thread spent getting each next device
+        wire (the wait for the packer, the submit of the next batch, the
+        copy's enqueue), its parts ``fetch_s`` in the packer's fetch and
+        ``copy_s`` in ``wire_to_device``, and ``disp_s``, the time it spent
+        dispatching the expansion and the train step."""
         self.packer.reset_cache()
         if self.use_memory:
             # memory and cache reset together (pyg_epoch_utils.py:11-16)
             self.mem_state = init_memory_state(self.mem_cfg, self.device)
         acc = torch.zeros(4, dtype=torch.float32, device=self.device)
         total = nb = 0
-        pack_s = 0.0
+        pack_s = disp_s = 0.0
+        tm = {"fetch_s": 0.0, "copy_s": 0.0}
         t0 = time.perf_counter()
-        sanity = self.config.train.sanity_batches
-        for lo, hi, rows, blk in self._iter_batches("train"):
-            if sanity and nb >= sanity:
-                break
+        wires = self._packed(self._train_jobs(), tm)
+        while True:
             t1 = time.perf_counter()
-            src, dst, t = d.src[rows], d.dst[rows], d.t[rows]
-            neg = self.neg_sampler.sample(dst)
-            pack = to_device(self.packer.pack(src, dst, t, rows, blk, neg),
-                             self.device)
-            pack_s += time.perf_counter() - t1
-            _, acc = self._train_step(pack, acc)
+            nxt = next(wires, None)
+            if nxt is None:
+                pack_s += time.perf_counter() - t1
+                break
+            (lo, hi), (wire, iw) = nxt
+            tc = time.perf_counter()
+            wire = wire_to_device(wire, self.device)
+            t2 = time.perf_counter()
+            tm["copy_s"] += t2 - tc
+            pack_s += t2 - t1
+            _, acc = self._train_step(self._expand(wire, iw), acc)
+            disp_s += time.perf_counter() - t2
             nb += 1
             total += hi - lo
         vals = acc.cpu().numpy()                    # ONE fetch
         self.last_epoch_trace = {"total_s": time.perf_counter() - t0,
-                                 "pack_s": pack_s, "batches": nb}
+                                 "pack_s": pack_s, "disp_s": disp_s,
+                                 **tm, "batches": nb}
         n = max(float(vals[3]), 1.0)
         return {"loss": float(vals[0]), "ap": float(vals[1] / n),
                 "auc": float(vals[2] / n), "events": total}
@@ -283,56 +411,56 @@ class Engine:
         kind, k = parse_eval_metric(d.eval_metric)
         acc = torch.zeros(2, dtype=torch.float32, device=self.device)
         ar = torch.arange(B, device=self.device)
+        # the eval-lean clock grid's block width, fixed for the pass
+        nb_bucket = nb_bucket_of(self.blocks_for(split))
         chunks = 0
-        pack_s = 0.0
+        pack_s = disp_s = 0.0
+        tm = {"fetch_s": 0.0, "copy_s": 0.0}
         t0 = time.perf_counter()
-        for lo, hi, rows, blk in self._iter_batches(split):
-            src, dst, t = d.src[rows], d.dst[rows], d.t[rows]
-            neg, mask = fixed.query_batch(lo, hi)
-            neg2d = np.asarray(neg).reshape(len(rows), -1)
-            M = neg2d.shape[1]
-            mask2d = None
-            if mask is not None:
-                mask2d = np.zeros((B, M), bool)
-                mask2d[:len(rows)] = mask
-            Mc = eval_neg_chunk_size(self.config, M, hi - lo)
-            n_chunks = -(-M // Mc)
-            opt = torch.zeros(B, dtype=torch.int64, device=self.device)
-            pes = torch.zeros(B, dtype=torch.int64, device=self.device)
-            for ci in range(n_chunks):
-                last = ci == n_chunks - 1
-                cols = slice(ci * Mc, (ci + 1) * Mc)
-                mask_c = None
-                if mask2d is not None:
-                    mask_c = torch.from_numpy(mask2d[:, cols]).to(
-                        self.device)
-                t1 = time.perf_counter()
-                pack = to_device(self.packer.pack(
-                    src, dst, t, rows, blk, neg2d[:, cols], eval_mode=True,
-                    insert=last, write_mail=last), self.device)
+        wires = self._packed(self._eval_jobs(split, fixed, B), tm)
+        while True:
+            t1 = time.perf_counter()
+            nxt = next(wires, None)
+            if nxt is None:
                 pack_s += time.perf_counter() - t1
-                if self.use_memory:
-                    # applied mail is cleared by the commit, so applying
-                    # and committing on every chunk is idempotent; only
-                    # the last chunk carries a write plan
-                    mem_rows, lu_rows = self._apply_mail(pack)
-                    embed = tgnn_embed(self.model, self.model_cfg, mem_rows,
-                                       self.feats, pack, train=False,
-                                       local=True)
-                    self._commit(pack, mem_rows, lu_rows)
-                else:
-                    embed = tgnn_embed(self.model, self.model_cfg,
-                                       self.memory, self.feats, pack,
-                                       train=False)
-                opt, pes = self._score_counts(embed, pack, opt, pes, mask_c)
-                chunks += 1
-            valid = ar < (hi - lo)
-            val = rank_metric_from_counts(opt, pes, kind, k)
-            val = torch.where(valid, val, 0.0)
-            batch_mean = val.sum() / torch.clamp(valid.sum(), min=1)
-            acc = acc + torch.stack([batch_mean,
-                                     torch.ones((), device=self.device)])
+                break
+            (lo, hi, blk, first, last, mask_c), (wire, iw) = nxt
+            if isinstance(wire, DedupWire):
+                wire = eval_lean_dedup(wire, blk, nb_bucket)
+            tc = time.perf_counter()
+            wire = wire_to_device(wire, self.device)
+            if mask_c is not None:
+                mask_c = torch.from_numpy(mask_c).to(self.device)
+            t2 = time.perf_counter()
+            tm["copy_s"] += t2 - tc
+            pack_s += t2 - t1
+            if first:
+                opt = torch.zeros(B, dtype=torch.int64, device=self.device)
+                pes = torch.zeros(B, dtype=torch.int64, device=self.device)
+            pack = self._expand(wire, iw)
+            if self.use_memory:
+                # applied mail is cleared by the commit, so applying and
+                # committing on every chunk is idempotent; only the last
+                # chunk carries a write plan
+                mem_rows, lu_rows = self._apply_mail(pack)
+                embed = tgnn_embed(self.model, self.model_cfg, mem_rows,
+                                   self.feats, pack, train=False, local=True)
+                self._commit(pack, mem_rows, lu_rows)
+            else:
+                embed = tgnn_embed(self.model, self.model_cfg, self.memory,
+                                   self.feats, pack, train=False)
+            opt, pes = self._score_counts(embed, pack, opt, pes, mask_c)
+            chunks += 1
+            if last:
+                valid = ar < (hi - lo)
+                val = rank_metric_from_counts(opt, pes, kind, k)
+                val = torch.where(valid, val, 0.0)
+                batch_mean = val.sum() / torch.clamp(valid.sum(), min=1)
+                acc = acc + torch.stack([batch_mean,
+                                         torch.ones((), device=self.device)])
+            disp_s += time.perf_counter() - t2
         vals = acc.cpu().numpy()                    # ONE fetch
         self.last_eval_trace = {"total_s": time.perf_counter() - t0,
-                                "pack_s": pack_s, "chunks": chunks}
+                                "pack_s": pack_s, "disp_s": disp_s,
+                                **tm, "chunks": chunks}
         return float(vals[0] / max(float(vals[1]), 1.0))

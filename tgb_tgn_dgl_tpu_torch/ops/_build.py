@@ -1,4 +1,4 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written CUDA kernels and its host C++.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled with
 ``nvcc`` for ``sm_90a`` into ``_build/lib<name>-<hash>.so``, where the
@@ -8,10 +8,18 @@ build runs at the first CUDA call that needs a library (or when
 without ``nvcc`` imports and tests the package on the CPU.  Several
 sources build in parallel, one ``nvcc`` process each (``compile_all``,
 which the A/B and sweep scripts use for other versions of a source).
+
+Each ``csrc/<name>.cpp`` is host code (the stream packer): ``g++`` with
+``CXX_FLAGS`` builds it at its first use (``host_library``) into
+``_build/lib<name>-<hash>.so``, where the hash also covers the compiler
+and the CPU's identity, since ``-march=native`` code built on one CPU may
+not run on another.  A failed or missing compiler raises with its output:
+nothing falls back to a slower copy.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -25,6 +33,9 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+CXX = "g++"
+CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
+             "-pthread")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -98,4 +109,80 @@ def library(name: str) -> ctypes.CDLL:
     if lib is None:
         build([name])
         lib = _loaded[name] = ctypes.CDLL(str(target(name)))
+    return lib
+
+
+# ---------------------------------------------------------------- host C++
+def host_sources() -> list:
+    """Names of every host source under csrc/."""
+    return sorted(p.stem for p in CSRC.glob("*.cpp"))
+
+
+def _cpu_identity() -> bytes:
+    """The CPU's model and feature lines: the code that ``-march=native``
+    emits depends on them."""
+    try:
+        lines = Path("/proc/cpuinfo").read_text().splitlines()
+    except OSError:
+        return os.uname().machine.encode()
+    keep = {}
+    for line in lines:
+        key = line.split(":")[0].strip()
+        if key in ("model name", "flags", "Features", "CPU part"):
+            keep.setdefault(key, line)
+    return "\n".join(keep[k] for k in sorted(keep)).encode()
+
+
+def host_target(name: str) -> Path:
+    src = (CSRC / f"{name}.cpp").read_bytes()
+    key = b"\0".join([src, CXX.encode(), " ".join(CXX_FLAGS).encode(),
+                      _cpu_identity()])
+    return BUILD / f"lib{name}-{hashlib.sha256(key).hexdigest()[:16]}.so"
+
+
+def compiler_version() -> str:
+    """The first line of ``CXX --version``."""
+    out = subprocess.run([CXX, "--version"], capture_output=True, text=True,
+                         timeout=60)
+    return out.stdout.splitlines()[0] if out.stdout else out.stderr.strip()
+
+
+def build_host(name: str) -> dict:
+    """Compile ``csrc/<name>.cpp`` with ``CXX`` unless its library exists.
+    Returns the seconds it took (0 when built already) and the compiler's
+    log; raises with the compiler's output on failure.  Processes that
+    build at once take turns on an ``flock`` (released when its holder
+    dies) and each writes a temporary file that ``os.replace`` moves in."""
+    out = host_target(name)
+    if out.exists():
+        return {"seconds": 0.0, "log": ""}
+    BUILD.mkdir(parents=True, exist_ok=True)
+    with open(BUILD / f".{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():
+            return {"seconds": 0.0, "log": ""}
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [CXX, *CXX_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cpp")]
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+        except OSError as e:
+            raise RuntimeError(f"cannot run the host compiler {CXX!r} for "
+                               f"csrc/{name}.cpp: {e}") from e
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"{CXX} failed for csrc/{name}.cpp (exit "
+                               f"{proc.returncode}):\n{log}")
+        os.replace(tmp, out)
+        return {"seconds": time.perf_counter() - t0, "log": log}
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cpp``, built first if needed."""
+    out = host_target(name)
+    lib = _loaded.get(str(out))
+    if lib is None:
+        build_host(name)
+        lib = _loaded[str(out)] = ctypes.CDLL(str(out))
     return lib
