@@ -34,7 +34,8 @@ device, phase by phase, one JSON line per phase:
   train      Engine on the tgbl-wiki-shaped synthetic stream with
              configs/TGN.yml at full width: the full train split (56 Adam
              steps) at the default dropout 0.2, the first step's time
-             apart, then 2 steps of a second engine at dropout 0
+             apart (from a CUDA event, so the epoch runs as the Engine
+             runs it), then 2 steps of a second engine at dropout 0
   eval       the streaming val pass with all 999 negatives per event
   memory_train
              Engine with configs/TGN-memory.yml (GRU mailbox memory) at
@@ -403,7 +404,8 @@ def _fields_differ(torch, got, want):
 def phase_wire(torch, data, cfg_path):
     """The native packer against the numpy packer, both fed the same
     batches in lockstep from a fresh stream state: 4 train batches as
-    dedup wires and one as a compact wire (``wire_dedup: False``), then
+    dedup wires and one as a compact wire (the Engine's fallback for a
+    batch whose intra window exceeds 255), then
     the first 2 and the last negative chunk of the first val batch as
     eval-lean dedup wires.  Each wire goes to the card through
     ``wire_to_device`` and is expanded there; the result must equal
@@ -511,17 +513,19 @@ def phase_wire(torch, data, cfg_path):
 
 
 def _timed_first_step(torch, eng):
-    """Wrap ``eng._train_step`` so that the first step waits for the device
-    once; returns the record whose ``first_step_s`` counts from ``t0``
-    (set by the caller just before ``train_epoch``)."""
-    rec = {}
+    """Wrap ``eng._train_step`` so that a CUDA event is recorded after the
+    first step; nothing waits for the device inside the epoch.  The caller
+    records ``rec["start"]`` just before ``train_epoch`` and, once the
+    epoch has been synchronized, ``_train_times`` reads the first step's
+    time from the start event to the end of its device work."""
+    rec = {"start": torch.cuda.Event(enable_timing=True)}
     step = eng._train_step
 
     def timed(pack, acc):
         out = step(pack, acc)
-        if "first_step_s" not in rec:
-            torch.cuda.synchronize()
-            rec["first_step_s"] = time.perf_counter() - rec["t0"]
+        if "first" not in rec:
+            rec["first"] = torch.cuda.Event(enable_timing=True)
+            rec["first"].record()
         return out
 
     eng._train_step = timed
@@ -529,12 +533,13 @@ def _timed_first_step(torch, eng):
 
 
 def _train_times(stats, tr, rec, batch):
-    rest = tr["total_s"] - rec["first_step_s"]
+    first = rec["start"].elapsed_time(rec["first"]) / 1e3
+    rest = tr["total_s"] - first
     return dict(seconds=tr["total_s"], pack_s=tr["pack_s"],
                 fetch_s=tr["fetch_s"], copy_s=tr["copy_s"],
                 disp_s=tr["disp_s"],
                 edges_per_s=stats["events"] / tr["total_s"],
-                first_step_s=rec["first_step_s"],
+                first_step_s=first,
                 after_first_step_edges_per_s=(stats["events"] - batch)
                 / max(rest, 1e-9))
 
@@ -546,7 +551,7 @@ def phase_train(torch, pkg, data, cfg_path):
     eng = pkg.Engine(data, cfg)
     rec = _timed_first_step(torch, eng)
     torch.cuda.synchronize()
-    rec["t0"] = time.perf_counter()
+    rec["start"].record()
     stats = eng.train_epoch()
     torch.cuda.synchronize()
     tr = eng.last_epoch_trace
@@ -584,7 +589,7 @@ def phase_memory_train(torch, pkg, data, cfg_path):
     eng = pkg.Engine(data, cfg)
     rec = _timed_first_step(torch, eng)
     torch.cuda.synchronize()
-    rec["t0"] = time.perf_counter()
+    rec["start"].record()
     stats = eng.train_epoch()
     torch.cuda.synchronize()
     tr = eng.last_epoch_trace

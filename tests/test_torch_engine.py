@@ -7,8 +7,12 @@ Both with the frozen all-ones memory and with the mailbox memory
 (``frozen_memory: False``, GRU, one slot), where every ``MemoryState``
 field is compared too: ``mem`` within 1e-4, the rest exactly.  Both
 engines pack with their native packer and ship dedup wires (eval-lean at
-eval); a third lockstep runs both with ``wire_dedup: False``, the
-compact wire.
+eval).  A third lockstep runs the compact wire: the JAX Engine with
+``wire_dedup: False`` against the port's Engine with a packer that hands
+every batch back, as a batch with an intra window over 255 is handed
+back, so the port packs each batch again into a compact wire; and one
+real batch with a hub in 280 of its 300 events takes that fallback in
+both engines.
 
 Tolerances: per-step loss and every parameter within 1e-4 abs+rel after 6
 steps (fp32 both sides; Adam divides by sqrt(v) and so amplifies the
@@ -80,11 +84,31 @@ def _with_train(raw, **train):
     return dict(raw, train=[dict(raw["train"][0], **train)])
 
 
-def _run_lockstep(raw):
-    jeng = JaxEngine(_data(synthetic), jax_config(_with_train(raw,
-                                                             **JAX_ONLY)))
-    peng = Engine(_data(port_synthetic), parse_config_dict(raw),
+class _HandsBack:
+    """The port's packer as if every batch had an intra window over 255:
+    submit takes the batch and packs nothing, fetch hands it back, so the
+    Engine packs each batch again on its own thread (``_pack_wire``)."""
+
+    def __init__(self, packer):
+        self._packer = packer
+
+    def pack_wire_dedup_submit(self, *args, **kw):
+        return True
+
+    def pack_wire_dedup_fetch(self):
+        return None
+
+    def __getattr__(self, name):
+        return getattr(self._packer, name)
+
+
+def _run_lockstep(raw, jax_only=JAX_ONLY, wrap_packer=None, data=_data):
+    jeng = JaxEngine(data(synthetic), jax_config(_with_train(raw,
+                                                            **jax_only)))
+    peng = Engine(data(port_synthetic), parse_config_dict(raw),
                   device="cpu")
+    if wrap_packer is not None:
+        peng.packer = wrap_packer(peng.packer)
     peng.model.load_state_dict(params_from_jax(jeng.params))
     jl, pl, wires = [], [], []
     _record_losses(jeng, jl)
@@ -261,7 +285,7 @@ def test_both_engines_pack_natively_and_ship_dedup_wires(lockstep):
     or run now)."""
     jeng, peng = lockstep["jeng"], lockstep["peng"]
     assert isinstance(jeng.packer, JaxNativePacker) and jeng._wire_dedup
-    assert isinstance(peng.packer, NativeStreamPacker) and peng._wire_dedup
+    assert isinstance(peng.packer, NativeStreamPacker)
     assert lockstep["wires"][:6] == [("DedupWire", False)] * 6
     if len(lockstep["wires"]) == 6:
         peng.evaluate("val")
@@ -275,7 +299,7 @@ def test_both_engines_pack_natively_and_ship_dedup_wires(lockstep):
 
 @pytest.fixture(scope="module")
 def compact_lockstep():
-    return _run_lockstep(_with_train(RAW, wire_dedup=False))
+    return _run_lockstep(RAW, dict(JAX_ONLY, wire_dedup=False), _HandsBack)
 
 
 def test_compact_wire_losses_match_per_step(compact_lockstep):
@@ -290,6 +314,28 @@ def test_compact_wire_params_match_after_six_steps(compact_lockstep):
 def test_compact_wire_val_mrr_matches(compact_lockstep):
     _assert_val_mrr_matches(compact_lockstep)
     assert set(compact_lockstep["wires"][6:]) == {("CompactWire", False)}
+
+
+def _hub_data(mod):
+    """The tiny stream with one source in 280 of the first 300 events:
+    the intra window of its root slot is 279, over the dedup wire's 255."""
+    import dataclasses
+    data = _data(mod)
+    src = data.src.copy()
+    src[:280] = src[0]
+    return dataclasses.replace(data, src=src)
+
+
+def test_wide_intra_window_batch_takes_the_compact_wire():
+    """A real batch the dedup wire cannot carry: both engines pack it again
+    on their main thread into a compact wire, and the step agrees."""
+    raw = _with_train(RAW, batch_size=300, max_intra_block=None,
+                      sanity_batches=1)
+    run = _run_lockstep(raw, data=_hub_data)
+    assert run["wires"] == [("CompactWire", False)]
+    assert len(run["pl"]) == 1
+    np.testing.assert_allclose(run["pl"], run["jl"], rtol=TOL, atol=TOL)
+    _assert_params_match(run)
 
 
 def test_sanity_batches_pack_no_batch_past_the_limit():

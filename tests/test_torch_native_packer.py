@@ -7,8 +7,8 @@ data/native_packer.py) on the CPU, exactly:
     NativeStreamPacker in every field's dtype and value;
   * submit/fetch gives the wires of the synchronous calls, with sync calls
     interleaved, and hands a batch with an intra window over 255 back;
-  * a compiler that fails, or is missing, makes ``make_stream_packer``
-    raise with the compiler's words.
+  * a compiler that fails, or is missing, makes the first
+    ``NativeStreamPacker`` raise with the compiler's words.
 
 Cases: train batches, eval batches with 2-D negatives, a mailbox ring of
 S = 2, ``max_intra_block=None`` and a cap, reset and snapshot/restore."""
@@ -22,8 +22,7 @@ from tgb_tgn_dgl_tpu.data.packer import PackerConfig as JaxPackerConfig
 from tgb_tgn_dgl_tpu_torch.data import dataset as pdata
 from tgb_tgn_dgl_tpu_torch.data.dependency import (dependency_aware_batch,
                                                    get_block)
-from tgb_tgn_dgl_tpu_torch.data.native_packer import (NativeStreamPacker,
-                                                      make_stream_packer)
+from tgb_tgn_dgl_tpu_torch.data.native_packer import NativeStreamPacker
 from tgb_tgn_dgl_tpu_torch.data.packer import (Pack, PackerConfig,
                                                StreamPacker)
 from tgb_tgn_dgl_tpu_torch.ops import _build
@@ -222,4 +221,4 @@ def test_failing_compiler_raises(compiler, monkeypatch):
     monkeypatch.setattr(_build, "CXX", compiler)
     assert not _build.host_target("packer").exists()
     with pytest.raises(RuntimeError, match="csrc/packer.cpp"):
-        make_stream_packer(10, PackerConfig(num_neighbors=2, batch_size=4))
+        NativeStreamPacker(10, PackerConfig(num_neighbors=2, batch_size=4))

@@ -11,7 +11,8 @@ bit-equal to the numpy packer (tests/test_torch_native_packer.py).
 
 The library is built with g++ at the first ``NativeStreamPacker``
 (ops/_build.py::host_library); a build that fails raises, and nothing
-falls back to the numpy packer.  Bound here are only the entry points
+falls back to the numpy packer (the JAX package's ``make_stream_packer``
+does; the port has no such factory).  Bound here are only the entry points
 this package calls; the source's others (the multi-layer and
 device-cache emitters, row-level state surgery, the clock-only read) are
 not used yet.
@@ -531,10 +532,3 @@ class NativeStreamPacker:
         )
         return wire, P
 
-
-def make_stream_packer(num_nodes: int, cfg: PackerConfig
-                       ) -> NativeStreamPacker:
-    """The Engine's packer: always the native one.  Its library builds
-    here at the first call and raises when it cannot (the JAX package's
-    factory falls back to the numpy packer instead; this one does not)."""
-    return NativeStreamPacker(num_nodes, cfg)

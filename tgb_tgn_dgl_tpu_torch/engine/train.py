@@ -11,9 +11,10 @@ batch (at eval one negative chunk) ahead on its own C++ thread into a
 → pinned non-blocking copy of the wire to the device (``wire_to_device``)
 → ``expand_dedup`` rebuilds the full ``DevicePack`` there with torch
 gathers → one train step (forward, BCE, backward, Adam) or, at eval, one
-embedding + scoring pass per negative chunk.  ``train.wire_dedup: False``
-packs synchronously into the compact wire (``train.wire_compact``) or the
-plain WirePack.  Protocol fidelity:
+embedding + scoring pass per negative chunk.  A batch whose intra window
+exceeds 255 does not fit the dedup wire: it is packed again on this
+thread into the compact wire (or, where that does not fit either, the
+plain WirePack).  Protocol fidelity:
 
   * the neighbor cache resets at each train-epoch start, clocks persist
     (reference epoch_utils.py:175; time_assoc is never reset);
@@ -51,7 +52,7 @@ import torch
 
 from ..data.dataset import TemporalData
 from ..data.dependency import dependency_aware_batch
-from ..data.native_packer import make_stream_packer
+from ..data.native_packer import NativeStreamPacker
 from ..data.packer import PackerConfig
 from ..models.memory import (MemoryModelConfig, apply_mail, commit,
                              init_memory, init_memory_state)
@@ -144,7 +145,7 @@ class Engine:
         self.model = self.model.to(self.device)
         # the native packer; its library builds here at first use and a
         # failed build raises (data/native_packer.py)
-        self.packer = make_stream_packer(data.num_nodes, PackerConfig(
+        self.packer = NativeStreamPacker(data.num_nodes, PackerConfig(
             num_neighbors=config.sampling.num_neighbors,
             batch_size=tr.batch_size,
             max_intra_block=tr.max_intra_block,
@@ -153,8 +154,6 @@ class Engine:
             seed=tr.seed,
             layers=g.layer,
         ))
-        self._wire_compact = bool(tr.wire_compact)
-        self._wire_dedup = bool(tr.wire_dedup)
         # counterpart of optax.adam(lr) (b1 0.9, b2 0.999, eps 1e-8)
         self.optimizer = torch.optim.Adam(self.model.parameters(), lr=tr.lr,
                                           betas=(0.9, 0.999), eps=1e-8)
@@ -199,56 +198,43 @@ class Engine:
 
     # -------------------------------------------------------------- wires
     def _pack_wire(self, args, kw):
-        """A WirePack of one batch, narrowed to a CompactWire when
-        ``train.wire_compact`` is on and the wire allows it (JAX
-        ``_maybe_compact``).  Returns (wire, intra_width)."""
+        """One batch packed on this thread as a WirePack, narrowed to a
+        CompactWire where the wire allows it (JAX ``_maybe_compact``).
+        Returns (wire, intra_width)."""
         wire, iw = self.packer.pack_wire(*args, **kw)
-        if self._wire_compact:
-            cw = compact_wire(wire, self.data.num_nodes, iw,
-                              self.config.memory.mailbox_size)
-            wire = wire if cw is None else cw
-        return wire, iw
-
-    def _pack_sync(self, args, kw):
-        """One batch packed on this thread: the dedup wire when it is on
-        and takes the batch, else ``_pack_wire``."""
-        out = (self.packer.pack_wire_dedup(*args, **kw)
-               if self._wire_dedup else None)
-        return out if out is not None else self._pack_wire(args, kw)
+        cw = compact_wire(wire, self.data.num_nodes, iw,
+                          self.config.memory.mailbox_size)
+        return (wire if cw is None else cw), iw
 
     def _packed(self, jobs, tm):
         """Yields (meta, (wire, intra_width)) for each job (meta, args, kw)
-        of ``jobs``, in order.  With the dedup wire the native packer runs
-        one job ahead on its C++ worker (JAX ``_prefetch_pipelined`` and
+        of ``jobs``, in order.  The native packer runs one job ahead on its
+        C++ worker (JAX ``_prefetch_pipelined`` and
         ``_eval_packed_chunks``): job i+1 is submitted before job i is
         yielded, so it packs while the caller dispatches job i.  Submission
         order is stream order, and the pending job is fetched before the
-        generator ends, so nothing past ``jobs`` is packed and the stream
-        state ends where the synchronous path leaves it.  ``tm["fetch_s"]``
-        gathers the time spent in the packer's fetch (the wait for the
-        worker and the read of its buffers)."""
-        if not self._wire_dedup:
-            for meta, args, kw in jobs:
-                yield meta, self._pack_sync(args, kw)
-            return
+        generator ends, so nothing past ``jobs`` is packed.
+        ``tm["fetch_s"]`` gathers the time spent in the packer's fetch (the
+        wait for the worker and the read of its buffers)."""
 
         def fetch(job):
             t0 = time.perf_counter()
             out = self.packer.pack_wire_dedup_fetch()
             tm["fetch_s"] += time.perf_counter() - t0
             # None: P > 255 and the state untouched, so pack the same
-            # batch as a WirePack
+            # batch on this thread
             return self._pack_wire(job[1], job[2]) if out is None else out
 
         pend = None
         for job in jobs:
             ready = None if pend is None else fetch(pend)
-            submitted = self.packer.pack_wire_dedup_submit(*job[1], **job[2])
+            # refused only for an empty batch or one over batch_size,
+            # which _iter_batches never yields
+            accepted = self.packer.pack_wire_dedup_submit(*job[1], **job[2])
+            assert accepted, "the packer refused a batch"
             if ready is not None:
                 yield pend[0], ready
-            pend = job if submitted else None
-            if not submitted:
-                yield job[0], self._pack_sync(job[1], job[2])
+            pend = job
         if pend is not None:
             yield pend[0], fetch(pend)
 

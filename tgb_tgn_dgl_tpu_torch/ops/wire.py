@@ -9,10 +9,11 @@ unchanged.  Three formats, as in the JAX package:
   * ``WirePack``: the cache part as (R, K) loc/feat/dt (feat = -1 marks an
     empty slot), the self-loop column as one (R,) dt vector, the intra
     part as a COO list, slot maps, uniq table and mailbox plan.
-  * ``CompactWire`` (``train.wire_compact``): a WirePack with uint16/uint8
-    index fields, the intra feature as a batch position, and the mailbox
-    plan as one slot per event direction.
-  * ``DedupWire`` (``train.wire_dedup``, the Engine's default): cache rows
+  * ``CompactWire``: a WirePack with uint16/uint8 index fields, the
+    intra feature as a batch position, and the mailbox plan as one slot
+    per event direction.  The Engine ships it for a batch that the dedup
+    wire cannot carry (an intra window over 255).
+  * ``DedupWire``, the Engine's wire: cache rows
     once per unique root node, the intra COO as per-slot windows into one
     node-major entry table, and at eval (``eval_lean_dedup``) no Δt at all:
     the device derives them from its event-time table and per-block
@@ -74,7 +75,7 @@ class WirePack(NamedTuple):
 
 
 class CompactWire(NamedTuple):
-    """A WirePack with narrow dtypes (train.wire_compact): index fields
+    """A WirePack with narrow dtypes: index fields
     ship as uint16/uint8 when their bucket's range fits, ``ia_feat`` as a
     uint16 batch position (``ev_idx[ia_pos]`` on the device), and the
     mailbox plan as one slot array: the packer's plan is identity-indexed,
@@ -105,7 +106,7 @@ class CompactWire(NamedTuple):
 
 
 class DedupWire(NamedTuple):
-    """The deduplicated narrow wire (train.wire_dedup).  Two facts make
+    """The deduplicated narrow wire.  Two facts make
     the shrink exact: the recency cache is pre-batch state, so every root
     slot of one node carries the same cache row (rows ship once per unique
     root node, ``cr_loc``/``cr_feat``, with the slot→row map ``root_cr``);

@@ -2,12 +2,13 @@
 
 The port's copy of tgb_tgn_dgl_tpu/utils/config.py.  It keeps the schema
 fields (so the same ``configs/TGN.yml`` and ``configs/TGN-memory.yml``
-parse in both packages) and the train knobs the port reads, among them
-the two wire-format knobs ``wire_compact`` and ``wire_dedup``
-(ops/wire.py).  The JAX package's other transport and dispatch knobs
-(the train-lean and blob wires, fused steps, device-cache mode,
-slot-unique eval, rng_impl, use_pallas) have no counterpart here: a
-config that sets one is refused as an unknown key rather than ignored.
+parse in both packages) and the train knobs the port reads.  The JAX
+package's transport and dispatch knobs (``wire_compact``, ``wire_dedup``,
+the train-lean and blob wires, fused steps, device-cache mode,
+slot-unique eval, rng_impl, use_pallas) have no counterpart here: the
+port always ships the dedup wire, falling back to the compact wire where
+a batch needs it (engine/train.py), and a config that sets one of those
+knobs is refused as an unknown key rather than ignored.
 
 Knobs the schema carries but the port does not run yet (JODIE/DyRep,
 ``train.remat``, vector messages, ``gnn.layer > 1``, 'uniform' sampling,
@@ -103,17 +104,6 @@ class TrainConfig:
     # memory-mode step (the JAX package's jax.checkpoint knob).  Not
     # ported: Engine refuses True.
     remat: bool = False
-    # Narrow-dtype wire (ops/wire.CompactWire): index fields as
-    # uint16/uint8, the intra feature as a batch position, the mailbox
-    # plan as one slot per event direction.  Bit-exact; used where the
-    # dedup wire is off or cannot take a batch (False ships the WirePack).
-    wire_compact: bool = True
-    # Deduplicated wire (ops/wire.DedupWire): cache rows once per unique
-    # root node, intra edges as per-slot windows, expanded by gathers;
-    # eval chunks ship it eval-lean (no Δt).  Bit-exact; a batch with an
-    # intra window over 255 falls back to the compact wire.  Takes
-    # precedence over wire_compact.
-    wire_dedup: bool = True
 
 
 @dataclass
