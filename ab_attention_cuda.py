@@ -82,7 +82,7 @@ def kernel_case(torch, attention, name):
     timed at: its ctypes arguments, the ``stream`` call, the shape, and the
     tensors behind the pointers (held by the caller while it times)."""
     R, Kp, H, frac = {label: rest for label, *rest in cs.SHAPES}[
-        cs.MAIN_SHAPE[name]]
+        cs.TIMED_SHAPES[name][0]]
     el, er, mask, dm, grad = cs.kernel_inputs(torch, R, Kp, H, frac, seed=0)
     a = attention.attention_probs_reference(el, er, mask, cs.SLOPE)
     out, d_er = torch.empty_like(er), torch.empty_like(er)

@@ -16,12 +16,14 @@ device, phase by phase, one JSON line per phase:
              inputs (out, the residual a, both gradients through autograd
              and from the backward kernel alone on the same a, and the
              inference forward under no_grad), with times and the
-             memory/compute bound
-  reference  a tiny stream trained and evaluated by the port on the GPU
-             and on the CPU (plain versions) from the same weights
+             memory/compute bound; the inference forward is timed at the
+             slot-unique embed chunk and at the column-chunk chunk
+  reference  a tiny stream trained and evaluated (val, then test, by the
+             slot-unique protocol) by the port on the GPU and on the CPU
+             (plain versions) from the same weights
   memory_reference
              the same with the mailbox memory (frozen_memory: False):
-             losses, val MRR and the final MemoryState must agree
+             losses, val and test MRR and the final MemoryState must agree
   wire       the native packer and the numpy packer in lockstep on the
              tgbl-wiki-shaped stream (TGN.yml widths): 4 train batches as
              dedup wires, one as a compact wire, then the first 2 and the
@@ -36,21 +38,33 @@ device, phase by phase, one JSON line per phase:
              steps) at the default dropout 0.2, the first step's time
              apart (from a CUDA event, so the epoch runs as the Engine
              runs it), then 2 steps of a second engine at dropout 0
-  eval       the streaming val pass with all 999 negatives per event
+  eval       the streaming val pass with all 999 negatives per event, by
+             the default gate, which must open (slot-unique): its
+             protocol, batches, embed and score chunks, host times and
+             peak device memory
+  eval_unique_vs_chunked
+             the column-chunk val pass from the stream state the eval
+             phase started from: MRR within 1e-3 of the slot-unique
+             pass's, and its time beside it
   memory_train
              Engine with configs/TGN-memory.yml (GRU mailbox memory) at
              full width on the same stream: the full train split at
              dropout 0.2
-  memory_eval
-             its streaming val pass with all 999 negatives per event
+  memory_eval, memory_eval_unique_vs_chunked
+             its val pass and the comparison, which also holds the
+             MemoryStates after both passes equal (mem within 1e-4)
+  pad_mask   a tiny stream with ragged negatives (1..24 a row), pad_mask
+             and hits@10: GPU against CPU on val and test by both
+             protocols, and each GPU val pass waits for the device once
   counters   launches of each kernel on the frozen path (train + eval;
              all five must be > 0) and on the memory path (memory_train +
              memory_eval; the dropout pair and the inference forward must
              be > 0), each path's counts set to 0 just before it
-  profile    torch.profiler over 4 train steps and one val batch of a
-             fresh engine, frozen and memory: wall time, host packing,
-             device busy time and the kernels that take it; then each run
-             again under torch.cuda's sync debug mode, which must see one
+  profile    torch.profiler over 4 train steps and one val batch (by the
+             slot-unique and by the column-chunk protocol) of a fresh
+             engine, frozen and memory: wall time, host packing, device
+             busy time and the kernels that take it; then each run again
+             under torch.cuda's sync debug mode, which must see one
              synchronization only (the pass's one fetch of its metrics)
 
 Every phase that runs an Engine reports its host time getting device
@@ -105,16 +119,21 @@ SOURCE = "tgb_tgn_dgl_tpu_torch/csrc/attention.cu"
 # starts 4 bytes past a 16-byte boundary), odd_h_long the float route
 # with lanes that a head vector does not fill (the tree reduction)
 SHAPES = [("train", 6144, 43, 8, 0.02), ("eval", 40960, 43, 8, 0.02),
+          ("eval_unique", 46812, 43, 8, 0.02),
           ("masked", 512, 43, 8, 0.5), ("odd_kp", 1000, 17, 8, 0.0),
           ("odd_h", 999, 17, 3, 0.1), ("long_kp", 512, 200, 8, 0.1),
           ("misaligned", 1000, 200, 8, 0.1),
           ("odd_h_long", 999, 200, 3, 0.1)]
-# the shape each kernel's record in the table is timed at: the eval
-# chunk for the forwards that every eval chunk runs, the train batch for
-# the others
-MAIN_SHAPE = {"attention_fwd": "eval", "attention_fwd_infer": "eval",
-              "attention_fwd_drop": "train", "attention_bwd": "train",
-              "attention_bwd_drop": "train"}
+# the shapes each kernel is timed at, the first one its record in the
+# table: the slot-unique embed chunk for the inference forward that the
+# val pass runs (the largest chunk of a 327,680-slot table: 7 chunks of
+# 46,812; also the column-chunk protocol's 40,960-slot chunk, beside it),
+# the column chunk for the training forward, the train batch for the
+# others
+TIMED_SHAPES = {"attention_fwd": ("eval",),
+                "attention_fwd_infer": ("eval_unique", "eval"),
+                "attention_fwd_drop": ("train",), "attention_bwd": ("train",),
+                "attention_bwd_drop": ("train",)}
 # what the memory path's train (dropout 0.2) and eval launch
 MEMORY_PATH_KERNELS = ("attention_fwd_drop", "attention_bwd_drop",
                        "attention_fwd_infer")
@@ -293,42 +312,54 @@ def phase_kernels(torch, attention):
                 timed[infer] = (lambda: attention.attention_fwd_infer(
                     el, er, mask, SLOPE), plain_fwd)
             for name, (run, plain) in timed.items():
-                if MAIN_SHAPE[name] != label:
+                if label not in TIMED_SHAPES[name]:
                     continue
                 ms = time_ms(torch, run, flush)
                 plain_ms = time_ms(torch, plain, flush)
                 bound_ms, bound_by, nbytes = kernel_bound(name, R, Kp, H)
-                results[name].update(dict(
+                results[name].setdefault("timed", {})[label] = dict(
                     shape=[R, Kp, H], ms=ms, plain_ms=plain_ms,
-                    bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes))
+                    bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
             del out_p, el_p, er_p, d_el_k, d_el_p
     for row in rows:
         emit(dict(phase="kernels", **row))
     for name in attention.KERNELS:
-        r = results[name]
-        emit(dict(phase="kernels", kernel=name, timed_at=r["shape"],
-                  ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                  bound_by=r["bound_by"], bytes=r["bytes"],
-                  pct_of_bound=100.0 * r["bound_ms"] / r["ms"]))
+        for label in TIMED_SHAPES[name]:
+            r = results[name]["timed"][label]
+            emit(dict(phase="kernels", kernel=name, timed_at=r["shape"],
+                      ms=r["ms"], plain_ms=r["plain_ms"],
+                      bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                      bytes=r["bytes"],
+                      pct_of_bound=100.0 * r["bound_ms"] / r["ms"]))
+        # the table's record: the first shape
+        results[name].update(results[name]["timed"][TIMED_SHAPES[name][0]])
     return results
 
 
 # ------------------------------------------------------------ engine runs
+# the tiny stream's "auto" gate estimates a 1.14x dedup and would close:
+# the reference phases force the slot-unique protocol
 REFERENCE_RAW = dict(sampling=[dict(neighbor=[5])],
                      gnn=[dict(att_head=4, dim_out=32, dim_time=32)],
                      train=[dict(batch_size=100, lr=1e-3, dropout=0.0,
-                                 att_dropout=0.0, eval_neg_chunk=3)])
+                                 att_dropout=0.0, eval_neg_chunk=3,
+                                 eval_slot_unique=True)])
 LOSS_TOL = 1e-4
 MRR_TOL = 1e-3
 MEM_TOL = 1e-4
 
 
+def _tiny(pkg, num_neg=8):
+    return pkg.synthetic("tiny", num_edges=855, num_nodes=120, msg_dim=8,
+                         num_neg=num_neg, seed=1)
+
+
 def _gpu_and_cpu(pkg, raw):
-    """Train one epoch and run the val pass of the tiny stream on the GPU
-    and on the CPU from the same seed (so the same weights); returns
-    {device: (per-step losses, val MRR, engine)}."""
-    data = pkg.synthetic("tiny", num_edges=855, num_nodes=120, msg_dim=8,
-                         num_neg=8, seed=1)
+    """Train one epoch and run the val pass, then the test pass, of the
+    tiny stream on the GPU and on the CPU from the same seed (so the same
+    weights); returns {device: (per-step losses, val MRR, engine, test
+    MRR)}."""
+    data = _tiny(pkg)
     out = {}
     for dev in ("cuda", "cpu"):
         eng = pkg.Engine(data, pkg.parse_config_dict(raw), device=dev)
@@ -342,7 +373,11 @@ def _gpu_and_cpu(pkg, raw):
 
         eng._train_step = rec
         eng.train_epoch()
-        out[dev] = (losses, eng.evaluate("val"), eng)
+        val = eng.evaluate("val")
+        if eng.last_eval_trace["protocol"] != "slot_unique":
+            raise AssertionError("the reference val pass did not take the "
+                                 "slot-unique protocol")
+        out[dev] = (losses, val, eng, eng.evaluate("test"))
     return out
 
 
@@ -354,19 +389,22 @@ def _host_times(eng):
 
 
 def _compare_runs(phase, out):
-    (lg, mg, eng), (lc, mc, _) = out["cuda"], out["cpu"]
+    (lg, mg, eng, tg), (lc, mc, _, tc) = out["cuda"], out["cpu"]
     loss_err = max(abs(a - b) for a, b in zip(lg, lc))
     res = dict(phase=phase, steps=len(lg), losses_gpu=lg,
                losses_cpu=lc, max_loss_diff=loss_err, mrr_gpu=mg,
-               mrr_cpu=mc, loss_tol=LOSS_TOL, mrr_tol=MRR_TOL,
-               **_host_times(eng))
-    ok = len(lg) == 6 and loss_err <= LOSS_TOL and abs(mg - mc) <= MRR_TOL
+               mrr_cpu=mc, test_mrr_gpu=tg, test_mrr_cpu=tc,
+               loss_tol=LOSS_TOL, mrr_tol=MRR_TOL,
+               protocol=eng.last_eval_trace["protocol"], **_host_times(eng))
+    ok = (len(lg) == 6 and loss_err <= LOSS_TOL and abs(mg - mc) <= MRR_TOL
+          and abs(tg - tc) <= MRR_TOL)
     return res, ok
 
 
 def phase_reference(torch, pkg):
     """Tiny stream, same weights, dropout 0: the GPU engine (kernels) and
-    the CPU engine (plain versions) must agree step by step."""
+    the CPU engine (plain versions) must agree step by step, and on the
+    val and the test MRR (slot-unique eval)."""
     res, ok = _compare_runs("reference", _gpu_and_cpu(pkg, REFERENCE_RAW))
     emit(res)
     if not ok:
@@ -374,9 +412,9 @@ def phase_reference(torch, pkg):
 
 
 def phase_memory_reference(torch, pkg):
-    """The reference phase with the mailbox memory: losses and MRR as
-    there, and the final MemoryState (after the val pass) equal: mem
-    within MEM_TOL, last_update and the mail fields exactly."""
+    """The reference phase with the mailbox memory: losses and MRRs as
+    there, and the final MemoryState (after the val and test passes)
+    equal: mem within MEM_TOL, last_update and the mail fields exactly."""
     raw = dict(REFERENCE_RAW, memory=[dict(dim_out=32, dim_time=32)],
                train=[dict(REFERENCE_RAW["train"][0], frozen_memory=False)])
     out = _gpu_and_cpu(pkg, raw)
@@ -617,18 +655,145 @@ def phase_memory_train(torch, pkg, data, cfg_path):
     return eng
 
 
-def phase_eval(torch, eng, phase="eval"):
+def _eval_record(tr):
+    """The eval trace's protocol, counts and host times."""
+    return {k: tr[k] for k in ("protocol", "batches", "embed_chunks",
+                               "score_chunks", "chunks", "pack_s", "fetch_s",
+                               "copy_s", "disp_s")}
+
+
+def _val_pass(torch, eng):
+    """One full val pass: (MRR, wall seconds, the trace's record, peak
+    device memory in GiB during the pass)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     mrr = eng.evaluate("val")
     torch.cuda.synchronize()
-    tr = eng.last_eval_trace
-    emit(dict(phase=phase, split="val", negatives=int(eng.data.val_ns.shape[1]),
-              events=int(eng.data.val_mask.sum()), mrr=mrr,
-              seconds=time.perf_counter() - t0, pack_s=tr["pack_s"],
-              fetch_s=tr["fetch_s"], copy_s=tr["copy_s"],
-              disp_s=tr["disp_s"], chunks=tr["chunks"]))
+    return (mrr, time.perf_counter() - t0, _eval_record(eng.last_eval_trace),
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def phase_eval(torch, eng, phase="eval"):
+    """The streaming val pass with every negative, by the default gate,
+    which must open (the slot-unique protocol).  Returns its MRR and
+    record."""
+    mrr, seconds, rec, peak = _val_pass(torch, eng)
+    res = dict(phase=phase, split="val",
+               negatives=int(eng.data.val_ns.shape[1]),
+               events=int(eng.data.val_mask.sum()), mrr=mrr,
+               seconds=seconds, **rec, peak_mem_gb=peak)
+    emit(res)
     if not 0.0 < mrr <= 1.0:
         raise AssertionError(f"val MRR {mrr} outside (0, 1]")
+    if rec["protocol"] != "slot_unique":
+        raise AssertionError(f"the default val pass took the "
+                             f"{rec['protocol']} protocol")
+    return res
+
+
+def _stream_state(eng):
+    """The engine's stream state: the packer's arrays and, with the
+    memory, a copy of the MemoryState."""
+    mem = (None if eng.mem_state is None else
+           type(eng.mem_state)(*(t.clone() for t in eng.mem_state)))
+    return eng.packer.snapshot(), mem
+
+
+def phase_eval_unique_vs_chunked(torch, eng, snap, unique, phase):
+    """The val pass of ``phase_eval`` (slot-unique, from the stream state
+    ``snap`` taken before it; ``unique`` its record) against the
+    column-chunk pass from the same state: MRRs within MRR_TOL and, with
+    the memory, the MemoryStates after both passes equal (mem within
+    MEM_TOL, the rest exactly).  Times both protocols."""
+    after_unique = _stream_state(eng)[1]
+    eng.packer.restore(snap[0])
+    if snap[1] is not None:
+        eng.mem_state = snap[1]
+    eng.config.train.eval_slot_unique = False
+    try:
+        mrr, seconds, rec, peak = _val_pass(torch, eng)
+    finally:
+        eng.config.train.eval_slot_unique = "auto"
+    res = dict(phase=phase, mrr_slot_unique=unique["mrr"],
+               mrr_column_chunk=mrr, mrr_tol=MRR_TOL,
+               seconds_slot_unique=unique["seconds"],
+               seconds_column_chunk=seconds,
+               column_chunk=dict(rec, peak_mem_gb=peak),
+               slot_unique={k: unique[k] for k in rec})
+    ok = rec["protocol"] == "column_chunk" and abs(mrr - unique["mrr"]) \
+        <= MRR_TOL
+    if after_unique is not None:
+        sc = eng.mem_state
+        res["max_mem_diff"] = float((after_unique.mem - sc.mem).abs().max())
+        res["unequal_state_fields"] = [
+            f for f in sc._fields if f != "mem"
+            and not torch.equal(getattr(after_unique, f), getattr(sc, f))]
+        ok = ok and res["max_mem_diff"] <= MEM_TOL \
+            and not res["unequal_state_fields"]
+    emit(res)
+    if not ok:
+        raise AssertionError("the slot-unique and column-chunk val passes "
+                             "disagree")
+
+
+RAGGED_NEG = 24
+
+
+def phase_pad_mask(torch, pkg):
+    """A tiny stream whose rows of 24 negatives are cut to a seeded length
+    in 1..24, evaluated with eval_neg_mode pad_mask and hits@10 after one
+    train epoch, on the GPU and on the CPU from the same weights, by both
+    protocols from the same stream state: val then test within MRR_TOL of
+    the CPU, and each GPU val pass waits for the device at most once."""
+    import dataclasses
+
+    import numpy as np
+    base = _tiny(pkg, RAGGED_NEG)
+
+    def cut(ns, seed):
+        rng = np.random.default_rng(seed)
+        out = np.empty(len(ns), object)
+        for i, row in enumerate(ns):
+            out[i] = row[:int(rng.integers(1, ns.shape[1] + 1))]
+        return out
+
+    data = dataclasses.replace(base, val_ns=cut(base.val_ns, 7),
+                               test_ns=cut(base.test_ns, 8),
+                               eval_metric="hits@10")
+    raw = dict(REFERENCE_RAW, train=[dict(REFERENCE_RAW["train"][0],
+                                          eval_neg_mode="pad_mask")])
+    got, syncs = {}, {}
+    for dev in ("cuda", "cpu"):
+        eng = pkg.Engine(data, pkg.parse_config_dict(raw), device=dev)
+        eng.train_epoch()
+        snap = eng.packer.snapshot()
+        for unique in (True, False):
+            eng.packer.restore(snap)
+            eng.config.train.eval_slot_unique = unique
+            val = {}
+            if dev == "cuda":
+                sites = _sync_sites(
+                    torch, lambda: val.update(v=eng.evaluate("val")))
+                syncs[eng.last_eval_trace["protocol"]] = sorted(sites)
+            else:
+                val["v"] = eng.evaluate("val")
+            proto = eng.last_eval_trace["protocol"]
+            got[dev, proto] = (val["v"], eng.evaluate("test"))
+    diffs = {p: max(abs(a - b) for a, b in zip(got["cuda", p],
+                                               got["cpu", p]))
+             for p in ("slot_unique", "column_chunk")}
+    emit(dict(phase="pad_mask", metric="hits@10", negatives="1..24",
+              hits_gpu={p: got["cuda", p] for p in diffs},
+              hits_cpu={p: got["cpu", p] for p in diffs},
+              max_diff=diffs, tol=MRR_TOL,
+              val_syncs={p: len(v) for p, v in syncs.items()},
+              sync_sites=syncs))
+    if max(diffs.values()) > MRR_TOL:
+        raise AssertionError(f"pad_mask GPU and CPU disagree: {diffs}")
+    if any(len(v) > 1 for v in syncs.values()) or len(syncs) != 2:
+        raise AssertionError(f"a pad_mask val pass waited for the device "
+                             f"more than once: {syncs}")
 
 
 def _profiled(torch, fn):
@@ -677,12 +842,13 @@ def _sync_sites(torch, fn):
 
 def phase_profile(torch, pkg, data, cfg_path, path):
     """Where the time goes: a traced run of 4 train steps and of the first
-    val batch (all its negative chunks) on a fresh engine of ``path``
-    (frozen or memory).  The kernel
-    busy share is the summed kernel time over the wall time; one minus it
-    is the device's idle share (copies run on their own engine).  A run
-    that waits for the device more than once (its one metrics fetch)
-    fails: the host would stall on the device there."""
+    val batch on a fresh engine of ``path`` (frozen or memory), by the
+    default slot-unique protocol and then by the column-chunk protocol
+    (all its negative chunks).  The kernel busy share is the summed kernel
+    time over the wall time; one minus it is the device's idle share
+    (copies run on their own engine).  A run that waits for the device
+    more than once (its one metrics fetch) fails: the host would stall on
+    the device there."""
     import dataclasses
     cfg = pkg.parse_config(cfg_path)
     cfg.train.sanity_batches = 4
@@ -691,12 +857,24 @@ def phase_profile(torch, pkg, data, cfg_path, path):
     cut[val_rows[cfg.train.batch_size:]] = False
     eng = pkg.Engine(dataclasses.replace(data, val_mask=cut), cfg)
     eng.train_epoch()                              # warm-up, untraced
+
+    def column_chunk():
+        eng.config.train.eval_slot_unique = False
+        try:
+            eng.evaluate("val")
+        finally:
+            eng.config.train.eval_slot_unique = "auto"
+
     for what, fn in (("train_4_steps", eng.train_epoch),
-                     ("eval_first_val_batch", lambda: eng.evaluate("val"))):
+                     ("eval_first_val_batch", lambda: eng.evaluate("val")),
+                     ("eval_first_val_batch_column_chunk", column_chunk)):
         wall, busy, copies, top = _profiled(torch, fn)
         trace = (eng.last_epoch_trace if what.startswith("train")
                  else eng.last_eval_trace)
         syncs = _sync_sites(torch, fn)
+        extra = ({} if what.startswith("train") else
+                 {k: trace[k] for k in ("protocol", "embed_chunks",
+                                        "score_chunks")})
         emit(dict(phase="profile", path=path, run=what, wall_s=wall,
                   host_pack_s=trace["pack_s"],
                   host_fetch_s=trace["fetch_s"],
@@ -705,10 +883,13 @@ def phase_profile(torch, pkg, data, cfg_path, path):
                   h2d_copy_s=copies,
                   kernel_busy_share=None if busy is None else busy / wall,
                   syncs=len(syncs), sync_sites=sorted(set(syncs)),
-                  top_kernels=top))
+                  **extra, top_kernels=top))
         if len(syncs) > 1:
             raise AssertionError(f"{path} {what} waited for the device "
                                  f"{len(syncs)} times: {sorted(set(syncs))}")
+        if what == "eval_first_val_batch" and \
+                trace["protocol"] != "slot_unique":
+            raise AssertionError(f"{path} {what} took {trace['protocol']}")
 
 
 def main() -> int:
@@ -769,17 +950,25 @@ def main() -> int:
         phase = "train"
         attention.reset_launch_counts()
         eng = phase_train(torch, pkg, data, cfg_path)
+        snap = _stream_state(eng)
         phase = "eval"
-        phase_eval(torch, eng)
+        unique = phase_eval(torch, eng)
         frozen_counts = dict(attention.launch_counts)
-        del eng
+        phase = "eval_unique_vs_chunked"
+        phase_eval_unique_vs_chunked(torch, eng, snap, unique, phase)
+        del eng, snap
         phase = "memory_train"
         attention.reset_launch_counts()
         eng = phase_memory_train(torch, pkg, data, mem_cfg_path)
+        snap = _stream_state(eng)
         phase = "memory_eval"
-        phase_eval(torch, eng, "memory_eval")
+        unique = phase_eval(torch, eng, "memory_eval")
         memory_counts = dict(attention.launch_counts)
-        del eng
+        phase = "memory_eval_unique_vs_chunked"
+        phase_eval_unique_vs_chunked(torch, eng, snap, unique, phase)
+        del eng, snap
+        phase = "pad_mask"
+        phase_pad_mask(torch, pkg)
         phase = "counters"
         counts = {k: frozen_counts[k] + memory_counts[k]
                   for k in attention.KERNELS}

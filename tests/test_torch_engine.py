@@ -2,7 +2,10 @@
 synthetic stream: batch 100, 4 heads, dim 32, dropout 0, the same
 (bridged) initial weights.  One train epoch is 6 Adam steps (599 train
 events); then a streaming val pass with 8 negatives in chunks of 3, so
-the column-chunk protocol's state advance on the last chunk is exercised.
+the column-chunk protocol's state advance on the last chunk is exercised
+(``eval_slot_unique: False`` on both sides; one more lockstep runs the
+val pass at the default ``"auto"``, which takes the slot-unique protocol
+on both).
 Both with the frozen all-ones memory and with the mailbox memory
 (``frozen_memory: False``, GRU, one slot), where every ``MemoryState``
 field is compared too: ``mem`` within 1e-4, the rest exactly.  Both
@@ -45,9 +48,9 @@ RAW = dict(
     sampling=[dict(neighbor=[5])],
     gnn=[dict(att_head=4, dim_out=32, dim_time=32)],
     train=[dict(batch_size=100, lr=1e-3, dropout=0.0, att_dropout=0.0,
-                eval_neg_chunk=3)],
+                eval_neg_chunk=3, eval_slot_unique=False)],
 )
-JAX_ONLY = dict(fuse_steps=1, eval_slot_unique=False)
+JAX_ONLY = dict(fuse_steps=1)
 MEMORY = dict(frozen_memory=False)
 
 
@@ -276,6 +279,27 @@ def _assert_val_mrr_matches(lockstep):
 
 def test_val_mrr_matches(lockstep):
     _assert_val_mrr_matches(lockstep)
+    assert lockstep["peng"].last_eval_trace["protocol"] == "column_chunk"
+
+
+def test_auto_val_mrr_matches(capsys):
+    """At the default ``eval_slot_unique: "auto"`` both engines' gates
+    estimate the same per-block dedup on this stream (1.14x, under 1.5x),
+    both say so and take the column-chunk protocol, and agree as above."""
+    train = {k: v for k, v in RAW["train"][0].items()
+             if k != "eval_slot_unique"}
+    run = _run_lockstep(dict(RAW, train=[train]))
+    unique = run["jeng"]._evaluate_unique
+    calls = []
+    run["jeng"]._evaluate_unique = lambda *a: calls.append(a[0]) or unique(*a)
+    capsys.readouterr()
+    _assert_val_mrr_matches(run)
+    assert calls == []
+    assert run["peng"].last_eval_trace["protocol"] == "column_chunk"
+    logged = [l for l in capsys.readouterr().out.splitlines()
+              if "slot-unique protocol off" in l]
+    assert len(logged) == 2 and logged[0] == logged[1]
+    assert "dedup 1.14x < 1.5x at N=120" in logged[0]
 
 
 def test_both_engines_pack_natively_and_ship_dedup_wires(lockstep):

@@ -6,23 +6,32 @@ with the frozen all-ones memory (the reference-parity configuration,
 
 Pipeline per batch, as the JAX Engine runs it by default: the native
 packer (data/native_packer.py, csrc/packer.cpp) packs the batch one
-batch (at eval one negative chunk) ahead on its own C++ thread into a
-``DedupWire`` (ops/wire.py; eval chunks narrowed by ``eval_lean_dedup``)
-→ pinned non-blocking copy of the wire to the device (``wire_to_device``)
-→ ``expand_dedup`` rebuilds the full ``DevicePack`` there with torch
-gathers → one train step (forward, BCE, backward, Adam) or, at eval, one
-embedding + scoring pass per negative chunk.  A batch whose intra window
-exceeds 255 does not fit the dedup wire: it is packed again on this
-thread into the compact wire (or, where that does not fit either, the
-plain WirePack).  Protocol fidelity:
+batch (at column-chunk eval one negative chunk) ahead on its own C++
+thread into a ``DedupWire`` (ops/wire.py; eval wires narrowed by
+``eval_lean_dedup``) → pinned non-blocking copy of the wire to the device
+(``wire_to_device``) → ``expand_dedup`` rebuilds the full ``DevicePack``
+there with torch gathers → one train step (forward, BCE, backward, Adam)
+or, at eval, the embedding and scoring of the batch.  A train batch or
+column-chunk eval chunk whose intra window exceeds 255 does not fit the
+dedup wire: it is packed again on this thread into the compact wire (or,
+where that does not fit either, the plain WirePack).
+
+Eval runs by default (``train.eval_slot_unique: "auto"``, as in the JAX
+Engine) the slot-unique protocol: each batch is packed once with all its
+negatives, every unique (node, block) root slot is embedded once, in
+chunks of at most ``EVAL_UNIQUE_SLOTS`` slots into one table, and ranks
+come from gathers into it.  Where its gate closes (the knob, an intra cap
+over 255 or none, a negative timestamp, over 65,536 blocks, or in "auto"
+too little per-block dedup), the engine says why once and runs the
+column-chunk protocol, which gives the same ranks and state.  Protocol
+fidelity:
 
   * the neighbor cache resets at each train-epoch start, clocks persist
     (reference epoch_utils.py:175; time_assoc is never reset);
   * validation streams on from the train state without reset and keeps
     inserting events (epoch_utils.py:157; pyg-mem-tgn.py:54-63);
-  * eval uses the fixed negatives in column chunks, ranks them by the
-    TGB/OGB tie rule, and the metric is the mean of per-batch means
-    (epoch_utils.py:163);
+  * eval ranks the fixed negatives by the TGB/OGB tie rule, and the
+    metric is the mean of per-batch means (epoch_utils.py:163);
   * train loss = BCE(pos→1) + BCE(neg→0), Adam, per-epoch AP/AUC
     (epoch_utils.py:295-317);
   * with the mailbox memory, the ``MemoryState`` (``mem_state``) resets
@@ -30,16 +39,18 @@ plain WirePack).  Protocol fidelity:
     through eval (pyg_epoch_utils.py:11-16).  A train step is apply_mail
     → embed → predict → loss → backward → commit of the detached rows
     (one-step truncated BPTT) → Adam (tgb_tgn_dgl_tpu
-    engine/train.py:446-466); every eval chunk runs apply_mail → embed →
+    engine/train.py:446-466).  A slot-unique eval batch applies the mail
+    once, embeds, scores and commits with the batch's write plan
+    (:754-878); a column-chunk eval chunk runs apply_mail → embed →
     commit, and only the last chunk carries a write plan (:1261-1275).
 
 Metrics accumulate in small tensors on the device; each epoch or eval
 pass fetches one of them.  Entry points run on CUDA unless the caller
 passes ``device="cpu"``; there is no silent fallback to the CPU.
 
-Not ported yet (NotImplementedError): JODIE/DyRep (``gnn.arch``),
-``train.remat``, 'uniform' sampling, bfloat16 compute, vector messages,
-gnn.layer > 1.
+Not ported yet (NotImplementedError): JODIE/DyRep (``gnn.arch``, and
+with it slot-unique eval's eager-mail branch), ``train.remat``, 'uniform'
+sampling, bfloat16 compute, vector messages, gnn.layer > 1.
 """
 from __future__ import annotations
 
@@ -75,6 +86,16 @@ def resolve_device(device=None) -> torch.device:
                 "port's plain torch versions on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+# slot-unique eval: root slots a batch embeds per embedding chunk, and the
+# negative columns a batch scores per chunk (tgb_tgn_dgl_tpu
+# engine/train.py:904,920)
+EVAL_UNIQUE_SLOTS = 49152
+EVAL_SCORE_COLUMNS = 256
+# the root-slot fields of a DedupWire: each embed chunk takes its rows
+SLOT_FIELDS = ("root_loc", "root_cr", "intra_lo", "intra_cnt", "intra_start",
+               "root_blk")
 
 
 def eval_neg_chunk_size(config, M: int, n_events: int) -> int:
@@ -176,7 +197,8 @@ class Engine:
         }
         self._blocks: Dict[str, np.ndarray] = {}
         self.last_epoch_trace: Dict[str, float] = {}
-        self.last_eval_trace: Dict[str, float] = {}
+        self.last_eval_trace: Dict[str, object] = {}
+        self._eval_gate_logged: set = set()
 
     # ------------------------------------------------------------ batches
     def blocks_for(self, split: str) -> np.ndarray:
@@ -206,14 +228,16 @@ class Engine:
                           self.config.memory.mailbox_size)
         return (wire if cw is None else cw), iw
 
-    def _packed(self, jobs, tm):
+    def _packed(self, jobs, tm, repack: bool = True):
         """Yields (meta, (wire, intra_width)) for each job (meta, args, kw)
         of ``jobs``, in order.  The native packer runs one job ahead on its
         C++ worker (JAX ``_prefetch_pipelined`` and
         ``_eval_packed_chunks``): job i+1 is submitted before job i is
         yielded, so it packs while the caller dispatches job i.  Submission
         order is stream order, and the pending job is fetched before the
-        generator ends, so nothing past ``jobs`` is packed.
+        generator ends, so nothing past ``jobs`` is packed.  A job the
+        packer hands back (an intra window over 255) is packed again on
+        this thread, or, without ``repack``, yielded as (meta, None).
         ``tm["fetch_s"]`` gathers the time spent in the packer's fetch (the
         wait for the worker and the read of its buffers)."""
 
@@ -223,16 +247,19 @@ class Engine:
             tm["fetch_s"] += time.perf_counter() - t0
             # None: P > 255 and the state untouched, so pack the same
             # batch on this thread
-            return self._pack_wire(job[1], job[2]) if out is None else out
+            if out is None and repack:
+                return self._pack_wire(job[1], job[2])
+            return out
 
         pend = None
         for job in jobs:
-            ready = None if pend is None else fetch(pend)
+            if pend is not None:
+                ready = fetch(pend)
             # refused only for an empty batch or one over batch_size,
             # which _iter_batches never yields
             accepted = self.packer.pack_wire_dedup_submit(*job[1], **job[2])
             assert accepted, "the packer refused a batch"
-            if ready is not None:
+            if pend is not None:
                 yield pend[0], ready
             pend = job
         if pend is not None:
@@ -365,6 +392,17 @@ class Engine:
                 "auc": float(vals[2] / n), "events": total}
 
     # --------------------------------------------------------------- eval
+    def _finalize(self, acc, opt, pes, valid):
+        """The batch's mean metric over its real events, added to the
+        running [Σ batch mean, batches] accumulator (tgb_tgn_dgl_tpu
+        engine/train.py:650-655)."""
+        kind, k = parse_eval_metric(self.data.eval_metric)
+        val = torch.where(valid, rank_metric_from_counts(opt, pes, kind, k),
+                          0.0)
+        batch_mean = val.sum() / torch.clamp(valid.sum(), min=1)
+        return acc + torch.stack([batch_mean,
+                                  torch.ones((), device=acc.device)])
+
     def _score_counts(self, embed, pack, opt, pes, neg_mask):
         """Edge scoring into per-event rank counts (tgb_tgn_dgl_tpu
         engine/train.py:623-643).  ``neg_mask`` (B, Mc) marks the real
@@ -381,72 +419,312 @@ class Engine:
             ge = ge & neg_mask
         return opt + gt.sum(dim=1), pes + ge.sum(dim=1)
 
+    def _embed_eval(self, pack, mem_rows):
+        """Root-slot embeddings of an eval pack: from the batch's applied
+        memory rows with the mailbox memory, else the frozen ones."""
+        if self.use_memory:
+            return tgnn_embed(self.model, self.model_cfg, mem_rows,
+                              self.feats, pack, train=False, local=True)
+        return tgnn_embed(self.model, self.model_cfg, self.memory,
+                          self.feats, pack, train=False)
+
+    # ------------------------------------------- slot-unique eval: the gate
+    def _log_eval_gate(self, reason: str) -> None:
+        """The column-chunk fallback is a several-fold slower eval: say
+        which gate closed, once per (run, reason)."""
+        if reason not in self._eval_gate_logged:
+            self._eval_gate_logged.add(reason)
+            print(f"[eval] slot-unique protocol off ({reason}); "
+                  f"using the column-chunk protocol", flush=True)
+
+    def _eval_unique_supported(self) -> bool:
+        """The knob and the structural checks of tgb_tgn_dgl_tpu
+        engine/train.py:693-715 that can fail in the port (the dedup wire
+        is always on, there is no device-cache mode, gnn.layer > 1 is
+        refused)."""
+        tr = self.config.train
+        if tr.eval_slot_unique not in (True, "auto"):
+            return False
+        for ok, reason in (
+                # an intra window over 255 cannot take the dedup wire, and
+                # this protocol cannot restart a half-streamed split with
+                # another wire
+                (tr.max_intra_block is not None
+                 and tr.max_intra_block <= 255,
+                 "max_intra_block=None or >255"),
+                # the device clock grid uses a -1 "no event" sentinel
+                (self._times_nonneg(), "negative event timestamps")):
+            if not ok:
+                self._log_eval_gate(reason)
+                return False
+        return True
+
+    def _times_nonneg(self) -> bool:
+        t = self.data.t
+        return bool(len(t) == 0 or np.asarray(t).min() >= 0)
+
+    def _eval_unique_active(self, split: str, ns, B: int):
+        """(use slot-unique, nb_bucket) for a split (tgb_tgn_dgl_tpu
+        engine/train.py:724-752): the structural checks, the block count
+        fits the eval-lean wire's u8/u16 block id, and in 'auto' the
+        estimated per-block candidate dedup is at least 1.5x (on a stream
+        with many nodes nearly every candidate is unique, and one full-M
+        pack buys nothing over column chunks)."""
+        if ns is None or not self._eval_unique_supported():
+            return False, 0
+        blocks = self.blocks_for(split)
+        nb_max = int(blocks.max()) + 1 if len(blocks) else 1
+        if nb_max > 65536:
+            self._log_eval_gate(">65536 dependency blocks in a batch")
+            return False, 0
+        if self.config.train.eval_slot_unique == "auto":
+            ns_arr = np.asarray(ns)
+            M = (ns_arr.shape[1] if ns_arr.ndim == 2 else
+                 max((len(x) for x in ns_arr), default=1))
+            draws_per_block = (2 + M) * B / max(nb_max, 1)
+            N = self.data.num_nodes
+            dedup_win = draws_per_block / max(
+                N * (1.0 - np.exp(-draws_per_block / N)), 1.0)
+            if dedup_win < 1.5:
+                self._log_eval_gate(
+                    f"auto: per-block candidate dedup {dedup_win:.2f}x "
+                    f"< 1.5x at N={N}")
+                return False, 0
+        return True, nb_bucket_of(blocks)
+
+    # ----------------------------------------- slot-unique eval: the pass
+    # The column-chunk protocol embeds each (node, block) root once per
+    # negative chunk.  A root slot's embedding depends only on its (node,
+    # block) pair (cache row, eval clock, intra window), so packing the
+    # batch once with all M negatives dedups each block's roots to the
+    # unique candidates, and ranks come from gathers into one table: the
+    # same embeddings, the same predictor math, and integer rank counts
+    # that add up over any column partition (tgb_tgn_dgl_tpu
+    # engine/train.py:663-680).
+    def _unique_jobs(self, split: str, fixed: FixedNegatives):
+        """One full-M job per batch; meta = (lo, hi, blk, M, qmask), the
+        stream state advanced by the batch (insert and write_mail at
+        their defaults)."""
+        d = self.data
+        for lo, hi, rows, blk in self._iter_batches(split):
+            neg, qmask = fixed.query_batch(lo, hi)
+            neg2d = np.asarray(neg).reshape(len(rows), -1)
+            yield ((lo, hi, blk, neg2d.shape[1], qmask),
+                   (d.src[rows], d.dst[rows], d.t[rows], rows, blk, neg2d),
+                   dict(eval_mode=True))
+
+    def _eval_unique_batches(self, split: str, fixed: FixedNegatives,
+                             B: int, nb_bucket: int, tm):
+        """Yields ((lo, hi, iw, n_chunks, n_mc), wire, mask) per batch, the
+        host half of tgb_tgn_dgl_tpu engine/train.py:880-968: the packer
+        runs one batch ahead (``_packed``); each wire goes eval-lean, its
+        root-slot fields padded to ``n_chunks`` equal embed chunks of at
+        most ``EVAL_UNIQUE_SLOTS`` slots (pad root_loc = Ub-1, the rest 0),
+        its negative slots to ``n_mc`` columns chunks of 256, and ``mask``
+        (B, 256·n_mc) marks the real (event, negative) pairs, AND-ed with
+        the pad+mask validity."""
+        for (lo, hi, blk, M, qmask), out in self._packed(
+                self._unique_jobs(split, fixed), tm, repack=False):
+            if out is None:
+                # the gate keeps the intra window within 255, so the packer
+                # handing a batch back means the gate and the packer
+                # disagree: fail rather than corrupt a half-streamed pass
+                raise RuntimeError(
+                    "slot-unique eval: dedup pack unrepresentable "
+                    "mid-split; set train.eval_slot_unique=False or "
+                    "train.max_intra_block<=255")
+            wire, iw = out
+            wire = eval_lean_dedup(wire, blk, nb_bucket)
+            if wire.cache_dt is not None:
+                raise RuntimeError(
+                    "slot-unique eval requires the lean wire (block "
+                    "count or negative timestamps rejected it); set "
+                    "train.eval_slot_unique=False")
+            R = wire.root_loc.shape[0]
+            n_chunks = max(1, -(-R // EVAL_UNIQUE_SLOTS))
+            R2 = n_chunks * -(-R // n_chunks)
+            if R2 != R:
+                pads = {"root_loc": wire.uniq_nid.shape[0] - 1, "root_cr": 0,
+                        "intra_lo": 0, "intra_cnt": 0, "intra_start": 0,
+                        "root_blk": 0}
+                wire = wire._replace(**{
+                    f: np.concatenate([getattr(wire, f),
+                                       np.full(R2 - R, v,
+                                               getattr(wire, f).dtype)])
+                    for f, v in pads.items()})
+            n_mc = max(1, -(-M // EVAL_SCORE_COLUMNS))
+            Mp = n_mc * EVAL_SCORE_COLUMNS
+            braw = hi - lo
+            mask = np.zeros((B, Mp), bool)
+            mask[:braw, :M] = True
+            if qmask is not None:            # pad+mask ragged negatives
+                mask[:braw, :M] &= np.asarray(qmask, bool)
+            ns = np.asarray(wire.ev_neg_slot).reshape(B, -1)
+            if Mp != M:
+                ns = np.concatenate([ns, np.zeros((B, Mp - M), ns.dtype)],
+                                    axis=1)
+            yield ((lo, hi, iw, n_chunks, n_mc),
+                   wire._replace(ev_neg_slot=ns), mask)
+
+    def _unique_eval_step(self, wire, iw, mask, valid, acc,
+                          n_chunks: int, n_mc: int):
+        """One batch of slot-unique eval on the device (tgb_tgn_dgl_tpu
+        engine/train.py:754-878, its scans as loops over host counts):
+        embed the root slots chunk by chunk into one (R2, D) table, score
+        every event against its negatives in column chunks by gathers into
+        it, and add the batch's mean metric to ``acc``.  With the memory,
+        the mail is applied once on the batch's read set before the first
+        embedding, and committed with the batch's write plan after
+        scoring."""
+        R2 = wire.root_loc.shape[0]
+        Rc = R2 // n_chunks
+        emb = torch.empty((R2, self.model_cfg.hidden_dim),
+                          dtype=torch.float32, device=self.device)
+        mem_rows = lu_rows = None
+        for c in range(n_chunks):
+            rows = slice(c * Rc, (c + 1) * Rc)
+            pack = self._expand(wire._replace(**{
+                f: getattr(wire, f)[rows] for f in SLOT_FIELDS}), iw)
+            if c == 0:
+                # the chunk-independent parts (read set, write plan) are
+                # the same in every chunk's expansion
+                pack0 = pack
+                if self.use_memory:
+                    mem_rows, lu_rows = self._apply_mail(pack0)
+            emb[rows] = self._embed_eval(pack, mem_rows)
+        h_src = emb[wire.ev_src_slot.long()]
+        h_pos = emb[wire.ev_pos_slot.long()]
+        neg_slot = wire.ev_neg_slot.long()                    # (B, Mp)
+        Mc = neg_slot.shape[1] // n_mc
+        opt = pes = torch.zeros(neg_slot.shape[0], dtype=torch.int64,
+                                device=self.device)
+        for j in range(n_mc):
+            cols = slice(j * Mc, (j + 1) * Mc)
+            pos, neg = self.model.pred(h_src, h_pos, emb[neg_slot[:, cols]])
+            p, m = pos[:, None], mask[:, cols]
+            opt = opt + ((neg > p) & m).sum(dim=1)
+            pes = pes + ((neg >= p) & m).sum(dim=1)
+        acc = self._finalize(acc, opt, pes, valid)
+        if self.use_memory:
+            self._commit(pack0, mem_rows, lu_rows)
+        return acc
+
+    # ------------------------------------------------ the eval pass itself
     @torch.no_grad()
     def evaluate(self, split: str = "val") -> float:
-        """Streaming TGB evaluation of ``split`` by the column-chunk
-        protocol: each batch's fixed negatives go through the model in
-        chunks of ``eval_neg_chunk_size``; ranks add up across chunks, and
-        only the LAST chunk of a batch inserts the batch into the stream
-        state (tgb_tgn_dgl_tpu engine/train.py:1599-1627)."""
+        """Streaming TGB evaluation of ``split``, by the slot-unique
+        protocol where its gate opens (the default, as in the JAX Engine;
+        ``train.eval_slot_unique``), else by the column-chunk protocol
+        (tgb_tgn_dgl_tpu engine/train.py:1892-1901).  Both give the same
+        ranks and leave the same stream state.  ``last_eval_trace`` holds
+        ``protocol``, ``pack_s`` (getting each next device wire, with its
+        parts ``fetch_s`` and ``copy_s``), ``disp_s``, ``batches``,
+        ``embed_chunks`` and ``score_chunks``, and ``chunks``, the
+        embedding's launches (``embed_chunks``)."""
         d = self.data
         ns = d.val_ns if split == "val" else d.test_ns
         if ns is None:
             raise ValueError(f"no fixed negatives for split '{split}'")
         fixed = FixedNegatives(ns, mode=self.config.train.eval_neg_mode)
         B = self.config.train.batch_size
-        kind, k = parse_eval_metric(d.eval_metric)
-        acc = torch.zeros(2, dtype=torch.float32, device=self.device)
+        active, nb_bucket = self._eval_unique_active(split, ns, B)
+        if active:
+            return self._evaluate_unique(split, fixed, B, nb_bucket)
+        return self._evaluate_chunked(split, fixed, B)
+
+    def _evaluate_unique(self, split: str, fixed: FixedNegatives, B: int,
+                         nb_bucket: int) -> float:
+        """The slot-unique pass (tgb_tgn_dgl_tpu engine/train.py:970-993):
+        one ``_unique_eval_step`` a batch."""
         ar = torch.arange(B, device=self.device)
+        n = {"batches": 0, "embed_chunks": 0, "score_chunks": 0}
+
+        def dispatch(meta, wire, mask, acc):
+            lo, hi, iw, n_chunks, n_mc = meta
+            n["batches"] += 1
+            n["embed_chunks"] += n_chunks
+            n["score_chunks"] += n_mc
+            return self._unique_eval_step(wire, iw, mask, ar < (hi - lo),
+                                          acc, n_chunks, n_mc)
+
+        return self._eval_pass(
+            "slot_unique", lambda tm: self._eval_unique_batches(
+                split, fixed, B, nb_bucket, tm), dispatch, n)
+
+    def _evaluate_chunked(self, split: str, fixed: FixedNegatives,
+                          B: int) -> float:
+        """The column-chunk pass (tgb_tgn_dgl_tpu engine/train.py:1599-1627):
+        each batch's fixed negatives go through the model in chunks of
+        ``eval_neg_chunk_size``; ranks add up across chunks, and only the
+        LAST chunk of a batch inserts the batch into the stream state."""
+        ar = torch.arange(B, device=self.device)
+        n = {"batches": 0, "embed_chunks": 0, "score_chunks": 0}
         # the eval-lean clock grid's block width, fixed for the pass
         nb_bucket = nb_bucket_of(self.blocks_for(split))
-        chunks = 0
-        pack_s = disp_s = 0.0
-        tm = {"fetch_s": 0.0, "copy_s": 0.0}
-        t0 = time.perf_counter()
-        wires = self._packed(self._eval_jobs(split, fixed, B), tm)
-        while True:
-            t1 = time.perf_counter()
-            nxt = next(wires, None)
-            if nxt is None:
-                pack_s += time.perf_counter() - t1
-                break
-            (lo, hi, blk, first, last, mask_c), (wire, iw) = nxt
-            if isinstance(wire, DedupWire):
-                wire = eval_lean_dedup(wire, blk, nb_bucket)
-            tc = time.perf_counter()
-            wire = wire_to_device(wire, self.device)
-            if mask_c is not None:
-                mask_c = torch.from_numpy(mask_c).to(self.device)
-            t2 = time.perf_counter()
-            tm["copy_s"] += t2 - tc
-            pack_s += t2 - t1
+        counts = {}
+
+        def items(tm):
+            for meta, (wire, iw) in self._packed(
+                    self._eval_jobs(split, fixed, B), tm):
+                lo, hi, blk, first, last, mask_c = meta
+                if isinstance(wire, DedupWire):
+                    wire = eval_lean_dedup(wire, blk, nb_bucket)
+                yield (lo, hi, iw, first, last), wire, mask_c
+
+        def dispatch(meta, wire, mask_c, acc):
+            lo, hi, iw, first, last = meta
             if first:
-                opt = torch.zeros(B, dtype=torch.int64, device=self.device)
-                pes = torch.zeros(B, dtype=torch.int64, device=self.device)
+                counts["opt"] = counts["pes"] = torch.zeros(
+                    B, dtype=torch.int64, device=self.device)
             pack = self._expand(wire, iw)
+            mem_rows = lu_rows = None
             if self.use_memory:
                 # applied mail is cleared by the commit, so applying and
                 # committing on every chunk is idempotent; only the last
                 # chunk carries a write plan
                 mem_rows, lu_rows = self._apply_mail(pack)
-                embed = tgnn_embed(self.model, self.model_cfg, mem_rows,
-                                   self.feats, pack, train=False, local=True)
+            embed = self._embed_eval(pack, mem_rows)
+            if self.use_memory:
                 self._commit(pack, mem_rows, lu_rows)
-            else:
-                embed = tgnn_embed(self.model, self.model_cfg, self.memory,
-                                   self.feats, pack, train=False)
-            opt, pes = self._score_counts(embed, pack, opt, pes, mask_c)
-            chunks += 1
+            counts["opt"], counts["pes"] = self._score_counts(
+                embed, pack, counts["opt"], counts["pes"], mask_c)
+            n["embed_chunks"] += 1
+            n["score_chunks"] += 1
             if last:
-                valid = ar < (hi - lo)
-                val = rank_metric_from_counts(opt, pes, kind, k)
-                val = torch.where(valid, val, 0.0)
-                batch_mean = val.sum() / torch.clamp(valid.sum(), min=1)
-                acc = acc + torch.stack([batch_mean,
-                                         torch.ones((), device=self.device)])
+                n["batches"] += 1
+                acc = self._finalize(acc, counts["opt"], counts["pes"],
+                                     ar < (hi - lo))
+            return acc
+
+        return self._eval_pass("column_chunk", items, dispatch, n)
+
+    def _eval_pass(self, protocol: str, items, dispatch, n) -> float:
+        """The loop both protocols share: ``items(tm)`` yields (meta, host
+        wire, host mask or None); each wire crosses with its mask in one
+        staging buffer and copy, ``dispatch`` adds to the device
+        accumulator, and the pass fetches it once."""
+        acc = torch.zeros(2, dtype=torch.float32, device=self.device)
+        pack_s = disp_s = 0.0
+        tm = {"fetch_s": 0.0, "copy_s": 0.0}
+        t0 = time.perf_counter()
+        it = items(tm)
+        while True:
+            t1 = time.perf_counter()
+            nxt = next(it, None)
+            if nxt is None:
+                pack_s += time.perf_counter() - t1
+                break
+            meta, wire, mask = nxt
+            tc = time.perf_counter()
+            wire, mask = wire_to_device(wire, self.device, mask)
+            t2 = time.perf_counter()
+            tm["copy_s"] += t2 - tc
+            pack_s += t2 - t1
+            acc = dispatch(meta, wire, mask, acc)
             disp_s += time.perf_counter() - t2
         vals = acc.cpu().numpy()                    # ONE fetch
         self.last_eval_trace = {"total_s": time.perf_counter() - t0,
                                 "pack_s": pack_s, "disp_s": disp_s,
-                                **tm, "chunks": chunks}
+                                **tm, "protocol": protocol, **n,
+                                "chunks": n["embed_chunks"]}
         return float(vals[0] / max(float(vals[1]), 1.0))

@@ -21,8 +21,9 @@ unchanged.  Three formats, as in the JAX package:
 
 Host side (numpy): ``compact_wire``, ``nb_bucket_of``,
 ``_lean_block_meta``, ``eval_lean_dedup``.  Device side (torch):
-``wire_to_device`` (one staging buffer, one pinned non-blocking copy;
-uint16 fields widen to int32 right after the copy), ``uncompact_wire``,
+``wire_to_device`` (one staging buffer, one pinned non-blocking copy for
+a wire and the arrays that travel with it; uint16 fields widen to int32
+right after the copy), ``uncompact_wire``,
 ``_mw_from_slots``, ``expand_dedup``, ``expand_wire``, ``expand_any``.  Every shape of the
 expansion comes from host ints (the wire's array shapes and the intra
 width), so it never waits for the device.  Every expansion is bit-equal
@@ -314,19 +315,22 @@ _TORCH_DTYPE = {np.dtype(np.bool_): torch.bool,
                 np.dtype(np.float32): torch.float32}
 
 
-def wire_to_device(wire, device):
+def wire_to_device(wire, device, *extra):
     """Every field of a wire as a tensor on ``device``, ``None`` fields
     kept ``None`` (the counterpart of data/packer.py::to_device).  The
-    fields are staged at 16-byte aligned offsets of one host buffer, which
-    crosses in one copy and is split into typed views on the device: one
-    pinned allocation and one ``non_blocking`` copy a wire, since pinning
-    and copying each of its ~25 fields apart cost the host about 20 ms an
-    eval chunk on the card's machine.  The caching host allocator keeps
-    the pinned buffer alive until its copy has run.  A uint16 field
-    crosses as int16 bits and widens to int32 right after the copy (torch
-    indexes with no uint16 tensor)."""
+    fields, and the host arrays of ``extra`` (an eval chunk's negative
+    mask), are staged at 16-byte aligned offsets of one host buffer,
+    which crosses in one copy and is split into typed views on the
+    device: one pinned allocation and one ``non_blocking`` copy, since
+    pinning and copying each of a wire's ~25 fields apart cost the host
+    about 20 ms an eval chunk on the card's machine.  The caching host
+    allocator keeps the pinned buffer alive until its copy has run.  A
+    uint16 field crosses as int16 bits and widens to int32 right after the
+    copy (torch indexes with no uint16 tensor).  Returns the device wire,
+    or (wire, *extra tensors) when ``extra`` is given."""
     device = torch.device(device)
-    arrays = [None if a is None else np.ascontiguousarray(a) for a in wire]
+    arrays = [None if a is None else np.ascontiguousarray(a)
+              for a in (*wire, *extra)]
     offsets, size = [], 0
     for a in arrays:
         offsets.append(size)
@@ -348,7 +352,9 @@ def wire_to_device(wire, device):
             t = t.to(torch.int32).bitwise_and_(0xFFFF)
         return t
 
-    return type(wire)(*(field(a, o) for a, o in zip(arrays, offsets)))
+    out = [field(a, o) for a, o in zip(arrays, offsets)]
+    dev_wire = type(wire)(*out[:len(wire)])
+    return (dev_wire, *out[len(wire):]) if extra else dev_wire
 
 
 def _i32(t: torch.Tensor) -> torch.Tensor:
