@@ -45,7 +45,8 @@ device, phase by phase, one JSON line per phase:
   eval_unique_vs_chunked
              the column-chunk val pass from the stream state the eval
              phase started from: MRR within 1e-3 of the slot-unique
-             pass's, and its time beside it
+             pass's, the packer state after it equal, and its time
+             beside it
   memory_train
              Engine with configs/TGN-memory.yml (GRU mailbox memory) at
              full width on the same stream: the full train split at
@@ -53,6 +54,13 @@ device, phase by phase, one JSON line per phase:
   memory_eval, memory_eval_unique_vs_chunked
              its val pass and the comparison, which also holds the
              MemoryStates after both passes equal (mem within 1e-4)
+  eval_low_dedup
+             configs/TGN.yml on a stream of tgbl-review's 352,637 nodes
+             and 100 negatives a row, cut to 70,000 events, where the JAX
+             Engine's "auto" dedup estimate (under 1.5x) would take
+             column chunks: one train epoch, then the val pass by the
+             port's gate (slot-unique) and by column chunks from the same
+             state, MRR and packer state held together, both timed
   pad_mask   a tiny stream with ragged negatives (1..24 a row), pad_mask
              and hits@10: GPU against CPU on val and test by both
              protocols, and each GPU val pass waits for the device once
@@ -337,13 +345,10 @@ def phase_kernels(torch, attention):
 
 
 # ------------------------------------------------------------ engine runs
-# the tiny stream's "auto" gate estimates a 1.14x dedup and would close:
-# the reference phases force the slot-unique protocol
 REFERENCE_RAW = dict(sampling=[dict(neighbor=[5])],
                      gnn=[dict(att_head=4, dim_out=32, dim_time=32)],
                      train=[dict(batch_size=100, lr=1e-3, dropout=0.0,
-                                 att_dropout=0.0, eval_neg_chunk=3,
-                                 eval_slot_unique=True)])
+                                 att_dropout=0.0, eval_neg_chunk=3)])
 LOSS_TOL = 1e-4
 MRR_TOL = 1e-3
 MEM_TOL = 1e-4
@@ -662,13 +667,14 @@ def _eval_record(tr):
                                "copy_s", "disp_s")}
 
 
-def _val_pass(torch, eng):
-    """One full val pass: (MRR, wall seconds, the trace's record, peak
-    device memory in GiB during the pass)."""
+def _val_pass(torch, eng, run=None):
+    """One full val pass, by ``eng.evaluate`` or ``run``: (MRR, wall
+    seconds, the trace's record, peak device memory in GiB during the
+    pass)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    mrr = eng.evaluate("val")
+    mrr = (run or eng.evaluate)("val")
     torch.cuda.synchronize()
     return (mrr, time.perf_counter() - t0, _eval_record(eng.last_eval_trace),
             torch.cuda.max_memory_allocated() / 2**30)
@@ -700,29 +706,34 @@ def _stream_state(eng):
     return eng.packer.snapshot(), mem
 
 
+def _unequal_packer_arrays(a, b):
+    """Indices of the packer snapshot arrays that differ."""
+    import numpy as np
+    return [i for i, (x, y) in enumerate(zip(a, b))
+            if not np.array_equal(x, y)]
+
+
 def phase_eval_unique_vs_chunked(torch, eng, snap, unique, phase):
     """The val pass of ``phase_eval`` (slot-unique, from the stream state
     ``snap`` taken before it; ``unique`` its record) against the
-    column-chunk pass from the same state: MRRs within MRR_TOL and, with
-    the memory, the MemoryStates after both passes equal (mem within
-    MEM_TOL, the rest exactly).  Times both protocols."""
-    after_unique = _stream_state(eng)[1]
+    column-chunk pass from the same state: MRRs within MRR_TOL, the packer
+    states after both passes equal and, with the memory, the MemoryStates
+    too (mem within MEM_TOL, the rest exactly).  Times both protocols."""
+    packer_unique, after_unique = _stream_state(eng)
     eng.packer.restore(snap[0])
     if snap[1] is not None:
         eng.mem_state = snap[1]
-    eng.config.train.eval_slot_unique = False
-    try:
-        mrr, seconds, rec, peak = _val_pass(torch, eng)
-    finally:
-        eng.config.train.eval_slot_unique = "auto"
+    mrr, seconds, rec, peak = _val_pass(torch, eng, eng._evaluate_chunked)
+    unequal = _unequal_packer_arrays(packer_unique, eng.packer.snapshot())
     res = dict(phase=phase, mrr_slot_unique=unique["mrr"],
                mrr_column_chunk=mrr, mrr_tol=MRR_TOL,
                seconds_slot_unique=unique["seconds"],
                seconds_column_chunk=seconds,
+               unequal_packer_arrays=unequal,
                column_chunk=dict(rec, peak_mem_gb=peak),
                slot_unique={k: unique[k] for k in rec})
     ok = rec["protocol"] == "column_chunk" and abs(mrr - unique["mrr"]) \
-        <= MRR_TOL
+        <= MRR_TOL and not unequal
     if after_unique is not None:
         sc = eng.mem_state
         res["max_mem_diff"] = float((after_unique.mem - sc.mem).abs().max())
@@ -733,6 +744,60 @@ def phase_eval_unique_vs_chunked(torch, eng, snap, unique, phase):
             and not res["unequal_state_fields"]
     emit(res)
     if not ok:
+        raise AssertionError("the slot-unique and column-chunk val passes "
+                             "disagree")
+
+
+# a stream of tgbl-review's node count and negatives, cut in events
+LOW_DEDUP_EDGES = 70_000
+JAX_AUTO_MIN = 1.5
+
+
+def _jax_auto_estimate(eng, split):
+    """The per-block candidate dedup that the JAX Engine's "auto" gate
+    estimates for ``split`` (tgb_tgn_dgl_tpu engine/train.py:739-751);
+    under JAX_AUTO_MIN that engine evaluates by column chunks."""
+    import math
+    blocks = eng.blocks_for(split)
+    M = eng.data.val_ns.shape[1]
+    draws = (2 + M) * eng.config.train.batch_size / (int(blocks.max()) + 1)
+    N = eng.data.num_nodes
+    return draws / max(N * (1.0 - math.exp(-draws / N)), 1.0)
+
+
+def phase_eval_low_dedup(torch, pkg, cfg_path):
+    """configs/TGN.yml on a stream with tgbl-review's node count and
+    negatives (352,637 nodes, 100 a row) cut to LOW_DEDUP_EDGES events,
+    where the JAX "auto" estimate is under JAX_AUTO_MIN: one train epoch,
+    then the val pass by the default gate, which must open, and by column
+    chunks from the same stream state.  MRRs within MRR_TOL, the packer
+    states after both passes equal, and both times."""
+    data = pkg.synthetic("tgbl-review", num_edges=LOW_DEDUP_EDGES)
+    eng = pkg.Engine(data, pkg.parse_config(cfg_path))
+    eng.train_epoch()
+    snap = eng.packer.snapshot()
+    est = _jax_auto_estimate(eng, "val")
+    mrr_u, sec_u, rec_u, peak_u = _val_pass(torch, eng)
+    packer_unique = eng.packer.snapshot()
+    eng.packer.restore(snap)
+    mrr_c, sec_c, rec_c, peak_c = _val_pass(torch, eng,
+                                            eng._evaluate_chunked)
+    unequal = _unequal_packer_arrays(packer_unique, eng.packer.snapshot())
+    emit(dict(phase="eval_low_dedup", nodes=data.num_nodes,
+              negatives=int(data.val_ns.shape[1]),
+              events=int(data.val_mask.sum()), jax_auto_estimate=est,
+              mrr_slot_unique=mrr_u, mrr_column_chunk=mrr_c,
+              mrr_tol=MRR_TOL, seconds_slot_unique=sec_u,
+              seconds_column_chunk=sec_c, unequal_packer_arrays=unequal,
+              slot_unique=dict(rec_u, peak_mem_gb=peak_u),
+              column_chunk=dict(rec_c, peak_mem_gb=peak_c)))
+    if est >= JAX_AUTO_MIN:
+        raise AssertionError(f"the JAX auto estimate {est} would open its "
+                             f"gate: the stream is not the one meant")
+    if rec_u["protocol"] != "slot_unique" or not 0.0 < mrr_u <= 1.0:
+        raise AssertionError(f"the default val pass took "
+                             f"{rec_u['protocol']} (MRR {mrr_u})")
+    if abs(mrr_u - mrr_c) > MRR_TOL or unequal:
         raise AssertionError("the slot-unique and column-chunk val passes "
                              "disagree")
 
@@ -768,18 +833,16 @@ def phase_pad_mask(torch, pkg):
         eng = pkg.Engine(data, pkg.parse_config_dict(raw), device=dev)
         eng.train_epoch()
         snap = eng.packer.snapshot()
-        for unique in (True, False):
+        for run in (eng.evaluate, eng._evaluate_chunked):
             eng.packer.restore(snap)
-            eng.config.train.eval_slot_unique = unique
             val = {}
             if dev == "cuda":
-                sites = _sync_sites(
-                    torch, lambda: val.update(v=eng.evaluate("val")))
+                sites = _sync_sites(torch, lambda: val.update(v=run("val")))
                 syncs[eng.last_eval_trace["protocol"]] = sorted(sites)
             else:
-                val["v"] = eng.evaluate("val")
+                val["v"] = run("val")
             proto = eng.last_eval_trace["protocol"]
-            got[dev, proto] = (val["v"], eng.evaluate("test"))
+            got[dev, proto] = (val["v"], run("test"))
     diffs = {p: max(abs(a - b) for a, b in zip(got["cuda", p],
                                                got["cpu", p]))
              for p in ("slot_unique", "column_chunk")}
@@ -858,16 +921,10 @@ def phase_profile(torch, pkg, data, cfg_path, path):
     eng = pkg.Engine(dataclasses.replace(data, val_mask=cut), cfg)
     eng.train_epoch()                              # warm-up, untraced
 
-    def column_chunk():
-        eng.config.train.eval_slot_unique = False
-        try:
-            eng.evaluate("val")
-        finally:
-            eng.config.train.eval_slot_unique = "auto"
-
     for what, fn in (("train_4_steps", eng.train_epoch),
                      ("eval_first_val_batch", lambda: eng.evaluate("val")),
-                     ("eval_first_val_batch_column_chunk", column_chunk)):
+                     ("eval_first_val_batch_column_chunk",
+                      lambda: eng._evaluate_chunked("val"))):
         wall, busy, copies, top = _profiled(torch, fn)
         trace = (eng.last_epoch_trace if what.startswith("train")
                  else eng.last_eval_trace)
@@ -967,6 +1024,8 @@ def main() -> int:
         phase = "memory_eval_unique_vs_chunked"
         phase_eval_unique_vs_chunked(torch, eng, snap, unique, phase)
         del eng, snap
+        phase = "eval_low_dedup"
+        phase_eval_low_dedup(torch, pkg, cfg_path)
         phase = "pad_mask"
         phase_pad_mask(torch, pkg)
         phase = "counters"

@@ -3,9 +3,10 @@ synthetic stream: batch 100, 4 heads, dim 32, dropout 0, the same
 (bridged) initial weights.  One train epoch is 6 Adam steps (599 train
 events); then a streaming val pass with 8 negatives in chunks of 3, so
 the column-chunk protocol's state advance on the last chunk is exercised
-(``eval_slot_unique: False`` on both sides; one more lockstep runs the
-val pass at the default ``"auto"``, which takes the slot-unique protocol
-on both).
+(``eval_slot_unique: False`` in the JAX Engine, ``_evaluate_chunked`` in
+the port's).  One more lockstep runs the val pass at each engine's
+default: the JAX ``"auto"`` gate closes on this stream and takes column
+chunks, the port's gate opens and takes the slot-unique protocol.
 Both with the frozen all-ones memory and with the mailbox memory
 (``frozen_memory: False``, GRU, one slot), where every ``MemoryState``
 field is compared too: ``mem`` within 1e-4, the rest exactly.  Both
@@ -48,9 +49,9 @@ RAW = dict(
     sampling=[dict(neighbor=[5])],
     gnn=[dict(att_head=4, dim_out=32, dim_time=32)],
     train=[dict(batch_size=100, lr=1e-3, dropout=0.0, att_dropout=0.0,
-                eval_neg_chunk=3, eval_slot_unique=False)],
+                eval_neg_chunk=3)],
 )
-JAX_ONLY = dict(fuse_steps=1)
+JAX_ONLY = dict(fuse_steps=1, eval_slot_unique=False)
 MEMORY = dict(frozen_memory=False)
 
 
@@ -206,7 +207,7 @@ def test_memory_state_matches_after_epoch(memory_lockstep):
 def test_memory_val_mrr_and_state_match(memory_lockstep):
     jeng, peng = memory_lockstep["jeng"], memory_lockstep["peng"]
     jm = jeng.evaluate("val")
-    pm = peng.evaluate("val")
+    pm = peng._evaluate_chunked("val")
     assert 0.0 < pm <= 1.0
     assert abs(pm - jm) <= MRR_TOL, (pm, jm)
     _assert_mem_state_match(peng, jeng, "after the val pass")
@@ -266,12 +267,15 @@ def test_cuda_memory_engine_matches_cpu():
         assert counts[name] > 0, name
 
 
-def _assert_val_mrr_matches(lockstep):
+def _assert_val_mrr_matches(lockstep, chunked=True):
+    """The val pass of both engines: the port's by column chunks, or with
+    ``chunked=False`` by its default protocol."""
     jm = lockstep["jeng"].evaluate("val")
-    pm = lockstep["peng"].evaluate("val")
+    peng = lockstep["peng"]
+    pm = peng._evaluate_chunked("val") if chunked else peng.evaluate("val")
     assert 0.0 < pm <= 1.0
     assert abs(pm - jm) <= MRR_TOL, (pm, jm)
-    # the stream state advanced identically through the chunked pass
+    # the stream state advanced identically through the pass
     for a, b in zip(lockstep["peng"].packer.snapshot(),
                     lockstep["jeng"].packer.snapshot()):
         np.testing.assert_array_equal(a, b)
@@ -283,22 +287,21 @@ def test_val_mrr_matches(lockstep):
 
 
 def test_auto_val_mrr_matches(capsys):
-    """At the default ``eval_slot_unique: "auto"`` both engines' gates
-    estimate the same per-block dedup on this stream (1.14x, under 1.5x),
-    both say so and take the column-chunk protocol, and agree as above."""
-    train = {k: v for k, v in RAW["train"][0].items()
-             if k != "eval_slot_unique"}
-    run = _run_lockstep(dict(RAW, train=[train]))
+    """Each engine's default val pass: the JAX ``"auto"`` gate estimates a
+    per-block dedup of 1.14x on this stream, under its 1.5x, says so and
+    takes column chunks; the port's gate, which has no dedup estimate,
+    opens and takes the slot-unique protocol.  They agree as above."""
+    run = _run_lockstep(RAW, jax_only=dict(fuse_steps=1))
     unique = run["jeng"]._evaluate_unique
     calls = []
     run["jeng"]._evaluate_unique = lambda *a: calls.append(a[0]) or unique(*a)
     capsys.readouterr()
-    _assert_val_mrr_matches(run)
+    _assert_val_mrr_matches(run, chunked=False)
     assert calls == []
-    assert run["peng"].last_eval_trace["protocol"] == "column_chunk"
+    assert run["peng"].last_eval_trace["protocol"] == "slot_unique"
     logged = [l for l in capsys.readouterr().out.splitlines()
               if "slot-unique protocol off" in l]
-    assert len(logged) == 2 and logged[0] == logged[1]
+    assert len(logged) == 1
     assert "dedup 1.14x < 1.5x at N=120" in logged[0]
 
 
@@ -312,7 +315,7 @@ def test_both_engines_pack_natively_and_ship_dedup_wires(lockstep):
     assert isinstance(peng.packer, NativeStreamPacker)
     assert lockstep["wires"][:6] == [("DedupWire", False)] * 6
     if len(lockstep["wires"]) == 6:
-        peng.evaluate("val")
+        peng._evaluate_chunked("val")
     assert set(lockstep["wires"][6:]) == {("DedupWire", True)}
     assert peng.last_eval_trace["chunks"] == len(lockstep["wires"]) - 6
     # the packer's fetch and the copy are parts of getting the next wire

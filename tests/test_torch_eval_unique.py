@@ -1,7 +1,8 @@
 """The port's slot-unique eval (engine/train.py::_evaluate_unique and its
-gate) against the port's column-chunk protocol and against the JAX
-Engine, on the CPU, at the sizes of tests/test_eval_unique.py: batch 150,
-2 heads, dim 16, K = 5, 7 negatives, dropout 0.
+gate) against the port's column-chunk protocol (``_evaluate_chunked``)
+and against the JAX Engine, on the CPU, at the sizes of
+tests/test_eval_unique.py: batch 150, 2 heads, dim 16, K = 5, 7
+negatives, dropout 0.
 
   * slot-unique against column chunks, frozen and with the mailbox
     memory: val then test give the same metric, and leave the same packer
@@ -12,6 +13,9 @@ Engine, on the CPU, at the sizes of tests/test_eval_unique.py: batch 150,
     on a near-tie), ``mem`` within 1e-4, the rest of the state exact;
   * several embed chunks, more than 255 dependency blocks (u16 block ids),
     the gate and its log, a batch the packer hands back;
+  * the gate opens whatever the dedup, where the JAX "auto" estimate
+    closes the JAX Engine's, and a config naming the JAX knob
+    ``eval_slot_unique`` is refused;
   * a ragged stream (each row's negatives cut to a seeded length in
     1..M): pad_mask and truncate_min, MRR and hits@10, val then test,
     against the JAX Engine under both protocols.  That stream has 24
@@ -38,15 +42,14 @@ MRR_TOL = 1e-3
 MEM_TOL = 1e-4
 
 
-def _raw(frozen=True, unique=True, neg_mode="truncate_min", **train):
+def _raw(frozen=True, neg_mode="truncate_min", **train):
     return {
         "sampling": [{"neighbor": [5]}],
         "memory": [{"dim_out": 16, "dim_time": 16, "mailbox_size": 2}],
         "gnn": [{"dim_out": 16, "att_head": 2, "dim_time": 16}],
         "train": [dict(dict(batch_size=150, lr=1e-3, dropout=0.0,
                             att_dropout=0.0, frozen_memory=frozen,
-                            eval_slot_unique=unique, eval_neg_mode=neg_mode,
-                            seed=11), **train)],
+                            eval_neg_mode=neg_mode, seed=11), **train)],
     }
 
 
@@ -76,12 +79,12 @@ def test_unique_matches_column_chunk(frozen):
     """Val then test: the same metric, packer state and MemoryState as the
     column-chunk protocol (in chunks of 3 negatives), exactly."""
     data = _data()
-    a = _port(data, _raw(frozen, unique=False, eval_neg_chunk=3))
-    b = _port(data, _raw(frozen, unique=True, eval_neg_chunk=3))
+    a = _port(data, _raw(frozen, eval_neg_chunk=3))
+    b = _port(data, _raw(frozen, eval_neg_chunk=3))
     for eng in (a, b):
         eng.train_epoch()
     for split in ("val", "test"):
-        ma, mb = a.evaluate(split), b.evaluate(split)
+        ma, mb = a._evaluate_chunked(split), b.evaluate(split)
         assert a.last_eval_trace["protocol"] == "column_chunk"
         assert b.last_eval_trace["protocol"] == "slot_unique"
         assert 0.0 < mb <= 1.0 and ma == mb, (split, ma, mb)
@@ -95,8 +98,9 @@ def test_unique_matches_column_chunk(frozen):
 
 def _jax_and_port(data_jax, data_port, raw):
     """Both engines from the same (bridged) weights after one train epoch
-    in lockstep."""
-    jraw = dict(raw, train=[dict(raw["train"][0], fuse_steps=1)])
+    in lockstep; the JAX Engine's slot-unique gate forced open."""
+    jraw = dict(raw, train=[dict(raw["train"][0], fuse_steps=1,
+                                 eval_slot_unique=True)])
     jeng = JaxEngine(data_jax, jax_config(jraw))
     peng = _port(data_port, raw)
     peng.model.load_state_dict(params_from_jax(jeng.params))
@@ -107,8 +111,7 @@ def _jax_and_port(data_jax, data_port, raw):
 
 @pytest.mark.parametrize("frozen", [True, False], ids=["frozen", "memory"])
 def test_unique_matches_jax_evaluate_unique(frozen):
-    jeng, peng = _jax_and_port(_data(jax_synthetic), _data(),
-                               _raw(frozen, unique=True))
+    jeng, peng = _jax_and_port(_data(jax_synthetic), _data(), _raw(frozen))
     calls = []
     run = jeng._evaluate_unique
 
@@ -187,52 +190,73 @@ def _hub_data(M=5, seed=3):
 
 def test_over_255_blocks_takes_u16_block_ids():
     data = _hub_data()
-    b = _port(data, _raw(unique=True, batch_size=600))
+    b = _port(data, _raw(batch_size=600))
     assert int(b.blocks_for("val").max()) + 1 > 255
-    active, nb_bucket = b._eval_unique_active("val", data.val_ns, 600)
-    assert active and nb_bucket > 256
-    a = _port(data, _raw(unique=False, batch_size=600))
+    assert b._eval_unique_bucket("val") > 256
+    a = _port(data, _raw(batch_size=600))
     for eng in (a, b):
         eng.train_epoch()
-    assert a.evaluate("val") == b.evaluate("val")
+    assert a._evaluate_chunked("val") == b.evaluate("val")
     assert b.last_eval_trace["protocol"] == "slot_unique"
     _assert_packers_equal(a, b)
 
 
-def test_gate_log_names_reason_once(capsys):
+def _shifted_times(data):
+    """The stream with its clock moved so that its first events come
+    before time 0."""
+    return dataclasses.replace(data, t=data.t - data.t[len(data.t) // 4])
+
+
+@pytest.mark.parametrize("train,stream,reason", [
+    (dict(max_intra_block=None), None, "max_intra_block"),
+    (dict(max_intra_block=300), None, "max_intra_block"),
+    ({}, _shifted_times, "negative event timestamps")],
+    ids=["intra-cap-none", "intra-cap-300", "negative-times"])
+def test_gate_log_names_reason_once(capsys, train, stream, reason):
+    """Each structural reason closes the gate, is said once per engine,
+    and the pass runs by column chunks."""
     data = port_dataset.synthetic("gate-log", num_edges=1200, num_nodes=100,
                                   msg_dim=4, num_neg=5, seed=7)
-    e = _port(data, _raw(unique=True, max_intra_block=None))
-    active, _ = e._eval_unique_active("val", data.val_ns, 150)
-    assert not active
+    if stream is not None:
+        data = stream(data)
+    e = _port(data, _raw(**train))
+    assert e._eval_unique_bucket("val") is None
     out = capsys.readouterr().out
-    assert "slot-unique protocol off" in out and "max_intra_block" in out
-    e.evaluate("val")
+    assert out.count("slot-unique protocol off") == 1 and reason in out
+    assert 0.0 < e.evaluate("val") <= 1.0
     assert e.last_eval_trace["protocol"] == "column_chunk"
     assert "slot-unique" not in capsys.readouterr().out
 
 
-def test_auto_gate_opens_on_small_n_and_closes_on_large_n():
+@pytest.mark.parametrize("num_nodes,num_neg,jax_auto", [
+    (300, 99, True), (60000, 20, False)], ids=["small-n", "large-n"])
+def test_gate_opens_whatever_the_dedup(num_nodes, num_neg, jax_auto):
+    """The port's gate opens on a stream of few nodes and on one of many
+    nodes, where the JAX "auto" estimate of per-block candidate dedup is
+    under 1.5x and closes the JAX Engine's (tests/test_eval_unique.py
+    :216-235); the slot-unique pass equals the column-chunk pass there."""
     raw = {"sampling": [{"neighbor": [5]}],
            "gnn": [{"dim_out": 16, "att_head": 2, "dim_time": 16}],
            "train": [{"batch_size": 500, "frozen_memory": True}]}
-    small = port_dataset.synthetic("gate-s", num_edges=4000, num_nodes=300,
-                                   msg_dim=4, num_neg=99, seed=5)
-    assert parse_config_dict(raw).train.eval_slot_unique == "auto"
-    active, nb = _port(small, raw)._eval_unique_active("val", small.val_ns,
-                                                       500)
-    assert active and nb >= 16
-    big = port_dataset.synthetic("gate-b", num_edges=4000, num_nodes=60000,
-                                 msg_dim=4, num_neg=20, seed=5)
-    active, _ = _port(big, raw)._eval_unique_active("val", big.val_ns, 500)
-    assert not active
+    kw = dict(num_edges=4000, num_nodes=num_nodes, msg_dim=4,
+              num_neg=num_neg, seed=5)
+    jdata = jax_synthetic("gate", **kw)
+    jeng = JaxEngine(jdata, jax_config(raw))
+    assert jeng._eval_unique_active("val", jdata.val_ns, 500)[0] == jax_auto
+    data = port_dataset.synthetic("gate", **kw)
+    a, b = _port(data, raw), _port(data, raw)
+    assert b._eval_unique_bucket("val") >= 16
+    assert a._evaluate_chunked("val") == b.evaluate("val")
+    assert b.last_eval_trace["protocol"] == "slot_unique"
+    _assert_packers_equal(a, b)
 
 
-@pytest.mark.parametrize("value", ["true", "yes", None])
-def test_invalid_knob_value_is_refused(value):
+@pytest.mark.parametrize("value", [True, False, "auto"])
+def test_eval_slot_unique_key_is_refused(value):
+    """The JAX knob has no counterpart in the port: a config that sets it
+    is refused rather than ignored."""
     with pytest.raises(ValueError, match="eval_slot_unique"):
-        parse_config_dict({"train": [{"eval_slot_unique": value}]}
-                          ).validate()
+        parse_config_dict({"train": [{"eval_slot_unique": value}]})
 
 
 class _HandsBack:
@@ -252,7 +276,10 @@ class _HandsBack:
 
 
 def test_handed_back_batch_raises_instead_of_repacking():
-    eng = _port(_data(), _raw(unique=True))
+    """A batch the packer hands back is packed again into another wire by
+    the shared pack-ahead; the slot-unique pass raises rather than
+    evaluate it."""
+    eng = _port(_data(), _raw())
     eng.packer = _HandsBack(eng.packer)
     with pytest.raises(RuntimeError, match="unrepresentable"):
         eng.evaluate("val")
@@ -291,7 +318,7 @@ def ragged_lockstep(request):
     jeng, peng = _jax_and_port(
         _ragged(jax_synthetic, metric), _ragged(port_dataset.synthetic,
                                                 metric),
-        _raw(unique=True, neg_mode=mode, eval_neg_chunk=5))
+        _raw(neg_mode=mode, eval_neg_chunk=5))
     return jeng, peng, jeng.packer.snapshot(), peng.packer.snapshot()
 
 
@@ -301,13 +328,13 @@ def test_ragged_negatives_match_jax(ragged_lockstep, unique):
     jeng, peng, jsnap, psnap = ragged_lockstep
     jeng.packer.restore(jsnap)
     peng.packer.restore(psnap)
-    for eng in (jeng, peng):
-        eng.config.train.eval_slot_unique = unique
+    jeng.config.train.eval_slot_unique = unique
     values = []
     for split in ("val", "test"):
         ns = peng.data.val_ns if split == "val" else peng.data.test_ns
         assert jeng._eval_unique_active(split, ns, 150)[0] == unique
-        jm, pm = jeng.evaluate(split), peng.evaluate(split)
+        jm = jeng.evaluate(split)
+        pm = peng.evaluate(split) if unique else peng._evaluate_chunked(split)
         assert peng.last_eval_trace["protocol"] == (
             "slot_unique" if unique else "column_chunk")
         assert abs(pm - jm) <= MRR_TOL, (split, pm, jm)
@@ -331,11 +358,11 @@ def test_pad_mask_crosses_with_the_wire(monkeypatch):
     monkeypatch.setattr(port_train, "wire_to_device", spy)
     data = _ragged(port_dataset.synthetic, "mrr")
     for unique, mp in ((True, 256), (False, 5)):
-        eng = _port(data, _raw(unique=unique, neg_mode="pad_mask",
-                               eval_neg_chunk=5, sanity_batches=1))
+        eng = _port(data, _raw(neg_mode="pad_mask", eval_neg_chunk=5,
+                               sanity_batches=1))
         eng.train_epoch()
         seen.clear()
-        eng.evaluate("val")
+        (eng.evaluate if unique else eng._evaluate_chunked)("val")
         tr = eng.last_eval_trace
         # one copy a batch (slot-unique) or a chunk (column chunks)
         assert len(seen) == (tr["batches"] if unique else tr["chunks"])

@@ -16,15 +16,16 @@ column-chunk eval chunk whose intra window exceeds 255 does not fit the
 dedup wire: it is packed again on this thread into the compact wire (or,
 where that does not fit either, the plain WirePack).
 
-Eval runs by default (``train.eval_slot_unique: "auto"``, as in the JAX
-Engine) the slot-unique protocol: each batch is packed once with all its
-negatives, every unique (node, block) root slot is embedded once, in
-chunks of at most ``EVAL_UNIQUE_SLOTS`` slots into one table, and ranks
-come from gathers into it.  Where its gate closes (the knob, an intra cap
-over 255 or none, a negative timestamp, over 65,536 blocks, or in "auto"
-too little per-block dedup), the engine says why once and runs the
-column-chunk protocol, which gives the same ranks and state.  Protocol
-fidelity:
+Eval runs the slot-unique protocol (the JAX Engine's default): each
+batch is packed once with all its negatives, every unique (node, block)
+root slot is embedded once, in chunks of at most ``EVAL_UNIQUE_SLOTS``
+slots into one table, and ranks come from gathers into it.  Where the
+stream cannot take it (an intra cap over 255 or none, a negative
+timestamp, over 65,536 blocks in a batch), the engine says why once and
+runs the column-chunk protocol, which gives the same ranks and state.
+The port has no ``eval_slot_unique`` knob and no JAX "auto" dedup
+estimate: slot-unique embeds at most the root slots column chunks do,
+whatever the dedup.  Protocol fidelity:
 
   * the neighbor cache resets at each train-epoch start, clocks persist
     (reference epoch_utils.py:175; time_assoc is never reset);
@@ -228,16 +229,14 @@ class Engine:
                           self.config.memory.mailbox_size)
         return (wire if cw is None else cw), iw
 
-    def _packed(self, jobs, tm, repack: bool = True):
+    def _packed(self, jobs, tm):
         """Yields (meta, (wire, intra_width)) for each job (meta, args, kw)
         of ``jobs``, in order.  The native packer runs one job ahead on its
         C++ worker (JAX ``_prefetch_pipelined`` and
         ``_eval_packed_chunks``): job i+1 is submitted before job i is
         yielded, so it packs while the caller dispatches job i.  Submission
         order is stream order, and the pending job is fetched before the
-        generator ends, so nothing past ``jobs`` is packed.  A job the
-        packer hands back (an intra window over 255) is packed again on
-        this thread, or, without ``repack``, yielded as (meta, None).
+        generator ends, so nothing past ``jobs`` is packed.
         ``tm["fetch_s"]`` gathers the time spent in the packer's fetch (the
         wait for the worker and the read of its buffers)."""
 
@@ -247,19 +246,16 @@ class Engine:
             tm["fetch_s"] += time.perf_counter() - t0
             # None: P > 255 and the state untouched, so pack the same
             # batch on this thread
-            if out is None and repack:
-                return self._pack_wire(job[1], job[2])
-            return out
+            return self._pack_wire(job[1], job[2]) if out is None else out
 
         pend = None
         for job in jobs:
-            if pend is not None:
-                ready = fetch(pend)
+            ready = None if pend is None else fetch(pend)
             # refused only for an empty batch or one over batch_size,
             # which _iter_batches never yields
             accepted = self.packer.pack_wire_dedup_submit(*job[1], **job[2])
             assert accepted, "the packer refused a batch"
-            if pend is not None:
+            if ready is not None:
                 yield pend[0], ready
             pend = job
         if pend is not None:
@@ -431,66 +427,38 @@ class Engine:
     # ------------------------------------------- slot-unique eval: the gate
     def _log_eval_gate(self, reason: str) -> None:
         """The column-chunk fallback is a several-fold slower eval: say
-        which gate closed, once per (run, reason)."""
+        which check closed the gate, once per (run, reason)."""
         if reason not in self._eval_gate_logged:
             self._eval_gate_logged.add(reason)
             print(f"[eval] slot-unique protocol off ({reason}); "
                   f"using the column-chunk protocol", flush=True)
 
-    def _eval_unique_supported(self) -> bool:
-        """The knob and the structural checks of tgb_tgn_dgl_tpu
-        engine/train.py:693-715 that can fail in the port (the dedup wire
-        is always on, there is no device-cache mode, gnn.layer > 1 is
-        refused)."""
-        tr = self.config.train
-        if tr.eval_slot_unique not in (True, "auto"):
-            return False
+    def _eval_unique_bucket(self, split: str) -> Optional[int]:
+        """The block-id bucket of ``split``'s eval-lean wires where the
+        slot-unique protocol can run, else None (tgb_tgn_dgl_tpu
+        engine/train.py:693-752).  Only the checks that can fail in the
+        port are kept: the dedup wire is always on, there is no
+        device-cache mode, gnn.layer > 1 is refused, and slot-unique is
+        taken whatever the dedup, with no knob to turn it off."""
+        blocks = self.blocks_for(split)
+        cap = self.config.train.max_intra_block
+        t = self.data.t
         for ok, reason in (
                 # an intra window over 255 cannot take the dedup wire, and
                 # this protocol cannot restart a half-streamed split with
                 # another wire
-                (tr.max_intra_block is not None
-                 and tr.max_intra_block <= 255,
+                (cap is not None and cap <= 255,
                  "max_intra_block=None or >255"),
                 # the device clock grid uses a -1 "no event" sentinel
-                (self._times_nonneg(), "negative event timestamps")):
+                (len(t) == 0 or np.asarray(t).min() >= 0,
+                 "negative event timestamps"),
+                # the eval-lean wire's block id is u8 or u16
+                (len(blocks) == 0 or int(blocks.max()) < 65536,
+                 ">65536 dependency blocks in a batch")):
             if not ok:
                 self._log_eval_gate(reason)
-                return False
-        return True
-
-    def _times_nonneg(self) -> bool:
-        t = self.data.t
-        return bool(len(t) == 0 or np.asarray(t).min() >= 0)
-
-    def _eval_unique_active(self, split: str, ns, B: int):
-        """(use slot-unique, nb_bucket) for a split (tgb_tgn_dgl_tpu
-        engine/train.py:724-752): the structural checks, the block count
-        fits the eval-lean wire's u8/u16 block id, and in 'auto' the
-        estimated per-block candidate dedup is at least 1.5x (on a stream
-        with many nodes nearly every candidate is unique, and one full-M
-        pack buys nothing over column chunks)."""
-        if ns is None or not self._eval_unique_supported():
-            return False, 0
-        blocks = self.blocks_for(split)
-        nb_max = int(blocks.max()) + 1 if len(blocks) else 1
-        if nb_max > 65536:
-            self._log_eval_gate(">65536 dependency blocks in a batch")
-            return False, 0
-        if self.config.train.eval_slot_unique == "auto":
-            ns_arr = np.asarray(ns)
-            M = (ns_arr.shape[1] if ns_arr.ndim == 2 else
-                 max((len(x) for x in ns_arr), default=1))
-            draws_per_block = (2 + M) * B / max(nb_max, 1)
-            N = self.data.num_nodes
-            dedup_win = draws_per_block / max(
-                N * (1.0 - np.exp(-draws_per_block / N)), 1.0)
-            if dedup_win < 1.5:
-                self._log_eval_gate(
-                    f"auto: per-block candidate dedup {dedup_win:.2f}x "
-                    f"< 1.5x at N={N}")
-                return False, 0
-        return True, nb_bucket_of(blocks)
+                return None
+        return nb_bucket_of(blocks)
 
     # ----------------------------------------- slot-unique eval: the pass
     # The column-chunk protocol embeds each (node, block) root once per
@@ -523,23 +491,20 @@ class Engine:
         its negative slots to ``n_mc`` columns chunks of 256, and ``mask``
         (B, 256·n_mc) marks the real (event, negative) pairs, AND-ed with
         the pad+mask validity."""
-        for (lo, hi, blk, M, qmask), out in self._packed(
-                self._unique_jobs(split, fixed), tm, repack=False):
-            if out is None:
-                # the gate keeps the intra window within 255, so the packer
-                # handing a batch back means the gate and the packer
-                # disagree: fail rather than corrupt a half-streamed pass
+        for (lo, hi, blk, M, qmask), (wire, iw) in self._packed(
+                self._unique_jobs(split, fixed), tm):
+            if not isinstance(wire, DedupWire):
+                # the gate keeps the intra window within 255, so a batch
+                # the packer handed back means the gate and the packer
+                # disagree: fail rather than go on with another wire
                 raise RuntimeError(
                     "slot-unique eval: dedup pack unrepresentable "
-                    "mid-split; set train.eval_slot_unique=False or "
-                    "train.max_intra_block<=255")
-            wire, iw = out
+                    "mid-split; set train.max_intra_block<=255")
             wire = eval_lean_dedup(wire, blk, nb_bucket)
             if wire.cache_dt is not None:
                 raise RuntimeError(
                     "slot-unique eval requires the lean wire (block "
-                    "count or negative timestamps rejected it); set "
-                    "train.eval_slot_unique=False")
+                    "count or negative timestamps rejected it)")
             R = wire.root_loc.shape[0]
             n_chunks = max(1, -(-R // EVAL_UNIQUE_SLOTS))
             R2 = n_chunks * -(-R // n_chunks)
@@ -610,32 +575,32 @@ class Engine:
         return acc
 
     # ------------------------------------------------ the eval pass itself
-    @torch.no_grad()
     def evaluate(self, split: str = "val") -> float:
         """Streaming TGB evaluation of ``split``, by the slot-unique
-        protocol where its gate opens (the default, as in the JAX Engine;
-        ``train.eval_slot_unique``), else by the column-chunk protocol
-        (tgb_tgn_dgl_tpu engine/train.py:1892-1901).  Both give the same
-        ranks and leave the same stream state.  ``last_eval_trace`` holds
-        ``protocol``, ``pack_s`` (getting each next device wire, with its
-        parts ``fetch_s`` and ``copy_s``), ``disp_s``, ``batches``,
+        protocol where its gate opens (the default, as in the JAX Engine),
+        else by the column-chunk protocol (tgb_tgn_dgl_tpu
+        engine/train.py:1892-1901).  Both give the same ranks and leave
+        the same stream state.  ``last_eval_trace`` holds ``protocol``,
+        ``pack_s`` (getting each next device wire, with its parts
+        ``fetch_s`` and ``copy_s``), ``disp_s``, ``batches``,
         ``embed_chunks`` and ``score_chunks``, and ``chunks``, the
         embedding's launches (``embed_chunks``)."""
-        d = self.data
-        ns = d.val_ns if split == "val" else d.test_ns
+        nb_bucket = self._eval_unique_bucket(split)
+        if nb_bucket is None:
+            return self._evaluate_chunked(split)
+        return self._evaluate_unique(split, nb_bucket)
+
+    def _fixed_negatives(self, split: str) -> FixedNegatives:
+        ns = self.data.val_ns if split == "val" else self.data.test_ns
         if ns is None:
             raise ValueError(f"no fixed negatives for split '{split}'")
-        fixed = FixedNegatives(ns, mode=self.config.train.eval_neg_mode)
-        B = self.config.train.batch_size
-        active, nb_bucket = self._eval_unique_active(split, ns, B)
-        if active:
-            return self._evaluate_unique(split, fixed, B, nb_bucket)
-        return self._evaluate_chunked(split, fixed, B)
+        return FixedNegatives(ns, mode=self.config.train.eval_neg_mode)
 
-    def _evaluate_unique(self, split: str, fixed: FixedNegatives, B: int,
-                         nb_bucket: int) -> float:
+    def _evaluate_unique(self, split: str, nb_bucket: int) -> float:
         """The slot-unique pass (tgb_tgn_dgl_tpu engine/train.py:970-993):
         one ``_unique_eval_step`` a batch."""
+        fixed = self._fixed_negatives(split)
+        B = self.config.train.batch_size
         ar = torch.arange(B, device=self.device)
         n = {"batches": 0, "embed_chunks": 0, "score_chunks": 0}
 
@@ -651,12 +616,15 @@ class Engine:
             "slot_unique", lambda tm: self._eval_unique_batches(
                 split, fixed, B, nb_bucket, tm), dispatch, n)
 
-    def _evaluate_chunked(self, split: str, fixed: FixedNegatives,
-                          B: int) -> float:
+    def _evaluate_chunked(self, split: str) -> float:
         """The column-chunk pass (tgb_tgn_dgl_tpu engine/train.py:1599-1627):
         each batch's fixed negatives go through the model in chunks of
         ``eval_neg_chunk_size``; ranks add up across chunks, and only the
-        LAST chunk of a batch inserts the batch into the stream state."""
+        LAST chunk of a batch inserts the batch into the stream state.
+        ``evaluate`` takes it where the slot-unique gate closes; the tests
+        and chip_smoke.py call it to hold the two protocols together."""
+        fixed = self._fixed_negatives(split)
+        B = self.config.train.batch_size
         ar = torch.arange(B, device=self.device)
         n = {"batches": 0, "embed_chunks": 0, "score_chunks": 0}
         # the eval-lean clock grid's block width, fixed for the pass
@@ -698,6 +666,7 @@ class Engine:
 
         return self._eval_pass("column_chunk", items, dispatch, n)
 
+    @torch.no_grad()
     def _eval_pass(self, protocol: str, items, dispatch, n) -> float:
         """The loop both protocols share: ``items(tm)`` yields (meta, host
         wire, host mask or None); each wire crosses with its mask in one

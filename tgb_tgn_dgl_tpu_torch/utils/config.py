@@ -4,12 +4,12 @@ The port's copy of tgb_tgn_dgl_tpu/utils/config.py.  It keeps the schema
 fields (so the same ``configs/TGN.yml`` and ``configs/TGN-memory.yml``
 parse in both packages) and the train knobs the port reads.  The JAX
 package's transport and dispatch knobs (``wire_compact``, ``wire_dedup``,
-the train-lean and blob wires, fused steps, device-cache mode, rng_impl,
-use_pallas) have no counterpart here: the port always ships the dedup
-wire, falling back to the compact wire where a batch needs it
-(engine/train.py), and a config that sets one of those knobs is refused
-as an unknown key rather than ignored.  ``train.eval_slot_unique`` is
-ported, with the JAX default ``"auto"``.
+the train-lean and blob wires, fused steps, device-cache mode,
+``eval_slot_unique``, rng_impl, use_pallas) have no counterpart here: the
+port always ships the dedup wire, falling back to the compact wire where
+a batch needs it, and evaluates by the slot-unique protocol wherever its
+structural gate opens (engine/train.py); a config that sets one of those
+knobs is refused as an unknown key rather than ignored.
 
 Knobs the schema carries but the port does not run yet (JODIE/DyRep,
 ``train.remat``, vector messages, ``gnn.layer > 1``, 'uniform' sampling,
@@ -96,13 +96,6 @@ class TrainConfig:
     # MRR ranks are additive across chunks).  None = auto (~24K root
     # slots per chunk, engine/train.eval_neg_chunk_size).
     eval_neg_chunk: Optional[int] = None
-    # Slot-unique eval (engine/train.py::_evaluate_unique): each batch is
-    # packed once with all M negatives, every unique (node, block) root is
-    # embedded once, and ranks come from gathers into one table.  'auto'
-    # takes it where the estimated per-block candidate dedup is >= 1.5x;
-    # True forces it (where the gate's structural checks pass), False
-    # keeps the column-chunk protocol above.
-    eval_slot_unique: object = "auto"
     # dtype for the dense compute path: 'float32' | 'bfloat16'
     compute_dtype: str = "float32"
     # Debug short-circuit (reference epoch_utils.py:12-13,188-192): stop
@@ -125,11 +118,6 @@ class FrameworkConfig:
         """Reject non-default values of schema-only knobs (the reference
         never implemented them either) instead of silently ignoring them."""
         s, m, t = self.sampling, self.memory, self.train
-        if t.eval_slot_unique not in (True, False, "auto"):
-            raise ValueError(
-                f"train.eval_slot_unique must be True, False or 'auto' "
-                f"(got {t.eval_slot_unique!r}): a quoted YAML 'true' would "
-                f"otherwise turn the slot-unique eval off unseen")
         if s.prop_time:
             raise NotImplementedError(
                 "sampling.prop_time is schema-only; only False is supported")
