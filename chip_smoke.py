@@ -24,6 +24,10 @@ device, phase by phase, one JSON line per phase:
   memory_reference
              the same with the mailbox memory (frozen_memory: False):
              losses, val and test MRR and the final MemoryState must agree
+  layer2_reference, vector_reference
+             the same with two stacked attention layers (gnn.layer: 2, the
+             column-chunk protocol, the attention kernels launched twice a
+             step and a chunk), and with vector messages at one layer
   wire       the native packer and the numpy packer in lockstep on the
              tgbl-wiki-shaped stream (TGN.yml widths): 4 train batches as
              dedup wires, one as a compact wire, then the first 2 and the
@@ -33,6 +37,12 @@ device, phase by phase, one JSON line per phase:
              exactly.  Both packers' host ms per train batch and per eval
              chunk (the native one at most 1/8 of the numpy one), and the
              wire's bytes against the full grids'
+  layer2_wire
+             the same at layers=2 (configs/TGN-2layer.yml) with the wire
+             the Engine ships there: 4 train batches and the first 2
+             negative chunks of the first val batch as compact wires with
+             their rslot fields, each expanded on the card equal to
+             to_device of the numpy pack, nbr_rslot included
   train      Engine on the tgbl-wiki-shaped synthetic stream with
              configs/TGN.yml at full width: the full train split (56 Adam
              steps) at the default dropout 0.2, the first step's time
@@ -54,6 +64,15 @@ device, phase by phase, one JSON line per phase:
   memory_eval, memory_eval_unique_vs_chunked
              its val pass and the comparison, which also holds the
              MemoryStates after both passes equal (mem within 1e-4)
+  layer2_train, layer2_eval
+             configs/TGN-2layer.yml (two attention layers, GRU memory) at
+             full width: the full train split at dropout 0.2, packed on the
+             main thread, then the val pass, whose gate must close with
+             "gnn.layer>1" (the column-chunk protocol)
+  vector_train, vector_eval
+             configs/TGN-memory.yml with message_mode: vector at full
+             width: 8 train steps, then the val pass (slot-unique) and its
+             peak device memory
   eval_low_dedup
              configs/TGN.yml on a stream of tgbl-review's 352,637 nodes
              and 100 negatives a row, cut to 70,000 events, where the JAX
@@ -65,14 +84,18 @@ device, phase by phase, one JSON line per phase:
              and hits@10: GPU against CPU on val and test by both
              protocols, and each GPU val pass waits for the device once
   counters   launches of each kernel on the frozen path (train + eval;
-             all five must be > 0) and on the memory path (memory_train +
+             all five must be > 0), on the memory path (memory_train +
              memory_eval; the dropout pair and the inference forward must
-             be > 0), each path's counts set to 0 just before it
+             be > 0), on the layer-2 path (layer2_train + layer2_eval; the
+             same three, exactly twice a step or a chunk) and on the vector
+             path (plain torch: none), each path's counts set to 0 just
+             before it; the kernel table sums them
   profile    torch.profiler over 4 train steps and one val batch (by the
              slot-unique and by the column-chunk protocol) of a fresh
-             engine, frozen and memory: wall time, host packing, device
-             busy time and the kernels that take it; then each run again
-             under torch.cuda's sync debug mode, which must see one
+             engine, frozen and memory, and at gnn.layer 2 (one val batch
+             by column chunks): wall time, host packing, device busy time
+             and the kernels that take it; then each run again under
+             torch.cuda's sync debug mode, which must see one
              synchronization only (the pass's one fetch of its metrics)
 
 Every phase that runs an Engine reports its host time getting device
@@ -145,6 +168,9 @@ TIMED_SHAPES = {"attention_fwd": ("eval",),
 # what the memory path's train (dropout 0.2) and eval launch
 MEMORY_PATH_KERNELS = ("attention_fwd_drop", "attention_bwd_drop",
                        "attention_fwd_infer")
+# train steps of the vector-message path (its (R, Kp, H, D) tensors make a
+# step several times as slow as a scalar one)
+VECTOR_STEPS = 8
 
 
 def emit(obj) -> None:
@@ -359,11 +385,11 @@ def _tiny(pkg, num_neg=8):
                          num_neg=num_neg, seed=1)
 
 
-def _gpu_and_cpu(pkg, raw):
+def _gpu_and_cpu(pkg, raw, protocol="slot_unique"):
     """Train one epoch and run the val pass, then the test pass, of the
     tiny stream on the GPU and on the CPU from the same seed (so the same
-    weights); returns {device: (per-step losses, val MRR, engine, test
-    MRR)}."""
+    weights), the val pass by ``protocol``; returns {device: (per-step
+    losses, val MRR, engine, test MRR)}."""
     data = _tiny(pkg)
     out = {}
     for dev in ("cuda", "cpu"):
@@ -379,9 +405,9 @@ def _gpu_and_cpu(pkg, raw):
         eng._train_step = rec
         eng.train_epoch()
         val = eng.evaluate("val")
-        if eng.last_eval_trace["protocol"] != "slot_unique":
-            raise AssertionError("the reference val pass did not take the "
-                                 "slot-unique protocol")
+        if eng.last_eval_trace["protocol"] != protocol:
+            raise AssertionError(f"the reference val pass did not take the "
+                                 f"{protocol} protocol")
         out[dev] = (losses, val, eng, eng.evaluate("test"))
     return out
 
@@ -416,14 +442,26 @@ def phase_reference(torch, pkg):
         raise AssertionError("GPU and CPU engines disagree")
 
 
-def phase_memory_reference(torch, pkg):
+MEMORY_RAW = dict(REFERENCE_RAW, memory=[dict(dim_out=32, dim_time=32)],
+                  train=[dict(REFERENCE_RAW["train"][0],
+                              frozen_memory=False)])
+
+
+def _with_gnn(raw, **gnn):
+    return dict(raw, gnn=[dict(raw["gnn"][0], **gnn)])
+
+
+def phase_memory_reference(torch, pkg, phase="memory_reference",
+                           raw=MEMORY_RAW, protocol="slot_unique"):
     """The reference phase with the mailbox memory: losses and MRRs as
     there, and the final MemoryState (after the val and test passes)
-    equal: mem within MEM_TOL, last_update and the mail fields exactly."""
-    raw = dict(REFERENCE_RAW, memory=[dict(dim_out=32, dim_time=32)],
-               train=[dict(REFERENCE_RAW["train"][0], frozen_memory=False)])
-    out = _gpu_and_cpu(pkg, raw)
-    res, ok = _compare_runs("memory_reference", out)
+    equal: mem within MEM_TOL, last_update and the mail fields exactly.
+    Returns the GPU run's launches of each kernel and its steps."""
+    from tgb_tgn_dgl_tpu_torch.ops import attention
+    attention.reset_launch_counts()
+    out = _gpu_and_cpu(pkg, raw, protocol)
+    launches = dict(attention.launch_counts)   # the CPU run launches none
+    res, ok = _compare_runs(phase, out)
     sg, sc = out["cuda"][2].mem_state, out["cpu"][2].mem_state
     mem_err = float((sg.mem.cpu() - sc.mem).abs().max())
     unequal = [f for f in sc._fields if f != "mem"
@@ -431,17 +469,46 @@ def phase_memory_reference(torch, pkg):
     res.update(max_mem_diff=mem_err, mem_tol=MEM_TOL,
                unequal_state_fields=unequal,
                mem_nonzero_rows=int((sc.mem.abs().sum(1) > 0).sum()),
-               valid_mail=int(sc.mail_valid.sum()))
+               valid_mail=int(sc.mail_valid.sum()), launches_gpu=launches)
     emit(res)
     if not ok or mem_err > MEM_TOL or unequal or res["valid_mail"] == 0:
-        raise AssertionError("GPU and CPU memory engines disagree")
+        raise AssertionError(f"{phase}: GPU and CPU memory engines disagree")
+    return launches, res["steps"]
+
+
+def phase_layer2_reference(torch, pkg):
+    """gnn.layer: 2 with the memory on the tiny stream, GPU against CPU as
+    in memory_reference; the val pass takes column chunks, and the GPU
+    run launches the dropout-0 pair twice a step."""
+    launches, steps = phase_memory_reference(
+        torch, pkg, "layer2_reference", _with_gnn(MEMORY_RAW, layer=2),
+        "column_chunk")
+    twice = {k: launches[k] for k in ("attention_fwd", "attention_bwd")}
+    if twice != {k: 2 * steps for k in twice}:
+        raise AssertionError(f"layer2_reference: {twice} in {steps} steps")
+
+
+def phase_vector_reference(torch, pkg):
+    """message_mode: vector at one layer with the memory, GPU against CPU
+    as in memory_reference (slot-unique eval).  Vector attention is plain
+    torch: the GPU run launches no kernel."""
+    launches, _ = phase_memory_reference(
+        torch, pkg, "vector_reference",
+        _with_gnn(MEMORY_RAW, message_mode="vector"))
+    if any(launches.values()):
+        raise AssertionError(f"vector_reference launched {launches}")
 
 
 def _fields_differ(torch, got, want):
-    """Fields of two DevicePacks that differ in dtype, shape or a value."""
+    """Fields of two DevicePacks that differ in dtype, shape or a value
+    (or where one is None, as nbr_rslot is at one layer, and the other
+    not)."""
+    def differ(a, b):
+        if a is None or b is None:
+            return a is not b
+        return a.dtype != b.dtype or not torch.equal(a, b)
     return [f for f in want._fields
-            if getattr(got, f).dtype != getattr(want, f).dtype
-            or not torch.equal(getattr(got, f), getattr(want, f))]
+            if differ(getattr(got, f), getattr(want, f))]
 
 
 def phase_wire(torch, data, cfg_path):
@@ -555,6 +622,78 @@ def phase_wire(torch, data, cfg_path):
                              f"packer's time: {slow} {ratio}")
 
 
+def phase_layer2_wire(torch, data, cfg_path):
+    """phase_wire at layers=2 (configs/TGN-2layer.yml): the native packer's
+    ``pack_wire`` and the numpy packer in lockstep from a fresh state, 4
+    train batches and the first 2 negative chunks of the first val batch,
+    each narrowed by ``compact_wire`` as the Engine ships it at
+    gnn.layer > 1, copied to the card by ``wire_to_device`` (the u16 rslot
+    sentinel arrives as 65535) and expanded there: equal to ``to_device``
+    of the numpy pack in every field, nbr_rslot included."""
+    from tgb_tgn_dgl_tpu_torch.data.dependency import dependency_aware_batch
+    from tgb_tgn_dgl_tpu_torch.data.native_packer import NativeStreamPacker
+    from tgb_tgn_dgl_tpu_torch.data.packer import (PackerConfig,
+                                                   StreamPacker, to_device)
+    from tgb_tgn_dgl_tpu_torch.engine.negatives import (FixedNegatives,
+                                                        NegLinkSamplerDest)
+    from tgb_tgn_dgl_tpu_torch.engine.train import eval_neg_chunk_size
+    from tgb_tgn_dgl_tpu_torch.ops.wire import (compact_wire, expand_any,
+                                                wire_nbytes, wire_to_device)
+    from tgb_tgn_dgl_tpu_torch.utils.config import parse_config
+    cfg = parse_config(cfg_path)
+    B, K, N = cfg.train.batch_size, cfg.sampling.num_neighbors, data.num_nodes
+    pk = PackerConfig(num_neighbors=K, batch_size=B,
+                      max_intra_block=cfg.train.max_intra_block,
+                      mailbox_size=cfg.memory.mailbox_size,
+                      layers=cfg.gnn.layer)
+    plain, native = StreamPacker(N, pk), NativeStreamPacker(N, pk)
+    cases = []
+
+    def run(what, args, kw):
+        pack = plain.pack(*args, **kw)
+        t0 = time.perf_counter()
+        wire, iw = native.pack_wire(*args, **kw)
+        cw = compact_wire(wire, N, iw, pk.mailbox_size)
+        t1 = time.perf_counter()
+        got = expand_any(wire_to_device(cw, "cuda"), K, iw, N)
+        want = to_device(pack, "cuda")
+        cases.append(dict(
+            what=what, wire=type(cw).__name__,
+            rslot_dtype=str(cw.cache_rslot.dtype),
+            rslot_in_block=int((got.nbr_rslot >= 0).sum()
+                               - pack.num_real_roots),
+            wire_bytes=wire_nbytes(cw), full_bytes=wire_nbytes(pack.device()),
+            native_ms=(t1 - t0) * 1e3,
+            fields_differ=_fields_differ(torch, got, want)))
+
+    rows = data.train_mask.nonzero()[0]
+    blocks = dependency_aware_batch(data.src[rows], data.dst[rows], B)
+    sampler = NegLinkSamplerDest(data.unique_dst(), seed=cfg.train.seed)
+    for bi in range(4):
+        r, blk = rows[bi * B:(bi + 1) * B], blocks[bi * B:(bi + 1) * B]
+        dst = data.dst[r]
+        run(f"train batch {bi}",
+            (data.src[r], dst, data.t[r], r, blk, sampler.sample(dst)), {})
+    rows = data.val_mask.nonzero()[0]
+    vblocks = dependency_aware_batch(data.src[rows], data.dst[rows], B)
+    r, blk = rows[:B], vblocks[:B]
+    neg, _ = FixedNegatives(data.val_ns).query_batch(0, B)
+    Mc = eval_neg_chunk_size(cfg, neg.shape[1], B)
+    for ci in (0, 1):
+        run(f"val chunk {ci}", (data.src[r], data.dst[r], data.t[r], r, blk,
+                                neg[:, ci * Mc:(ci + 1) * Mc]),
+            dict(eval_mode=True, insert=False, write_mail=False))
+    emit(dict(phase="layer2_wire", layers=pk.layers, cases=cases,
+              host_ms_is="the chip machine's CPU, this call"))
+    bad = [c["what"] for c in cases if c["fields_differ"]]
+    if bad:
+        raise AssertionError(f"layer-2 expansion differs from the numpy "
+                             f"pack: {bad}")
+    if not all(c["wire"] == "CompactWire" and c["rslot_dtype"] == "uint16"
+               and c["rslot_in_block"] > 0 for c in cases):
+        raise AssertionError(f"unexpected layer-2 wires: {cases}")
+
+
 def _timed_first_step(torch, eng):
     """Wrap ``eng._train_step`` so that a CUDA event is recorded after the
     first step; nothing waits for the device inside the epoch.  The caller
@@ -622,12 +761,17 @@ def phase_train(torch, pkg, data, cfg_path):
     return eng
 
 
-def phase_memory_train(torch, pkg, data, cfg_path):
-    """TGN-memory.yml at full width: the full train split at dropout 0.2
-    through apply_mail → embed → loss → backward → commit."""
+def phase_memory_train(torch, pkg, data, cfg_path, phase="memory_train",
+                       steps=0, **gnn):
+    """TGN-memory.yml (or another memory config) at full width: the full
+    train split (or its first ``steps`` batches) at dropout 0.2 through
+    apply_mail → embed → loss → backward → commit; ``gnn`` overrides keys
+    of the config's gnn section."""
+    import dataclasses
     import math
     cfg = pkg.parse_config(cfg_path)
-    cfg.train.sanity_batches = 0
+    cfg.train.sanity_batches = steps
+    cfg = dataclasses.replace(cfg, gnn=dataclasses.replace(cfg.gnn, **gnn))
     torch.cuda.reset_peak_memory_stats()
     eng = pkg.Engine(data, cfg)
     rec = _timed_first_step(torch, eng)
@@ -638,7 +782,7 @@ def phase_memory_train(torch, pkg, data, cfg_path):
     tr = eng.last_epoch_trace
     st = eng.mem_state
     nonzero = int((st.mem.abs().sum(1) > 0).sum())
-    emit(dict(phase="memory_train", events=stats["events"],
+    emit(dict(phase=phase, events=stats["events"],
               steps=tr["batches"], loss_sum=stats["loss"], ap=stats["ap"],
               auc=stats["auc"],
               **_train_times(stats, tr, rec, cfg.train.batch_size),
@@ -646,6 +790,8 @@ def phase_memory_train(torch, pkg, data, cfg_path):
               valid_mail=int(st.mail_valid.sum()),
               width=dict(D=cfg.gnn.dim_out, H=cfg.gnn.att_head,
                          K=cfg.sampling.num_neighbors,
+                         layers=cfg.gnn.layer,
+                         message_mode=cfg.gnn.message_mode,
                          batch=cfg.train.batch_size, msg=data.msg_dim,
                          memory_dim=eng.mem_cfg.memory_dim,
                          time_dim=eng.mem_cfg.time_dim,
@@ -680,21 +826,26 @@ def _val_pass(torch, eng, run=None):
             torch.cuda.max_memory_allocated() / 2**30)
 
 
-def phase_eval(torch, eng, phase="eval"):
+def phase_eval(torch, eng, phase="eval", closed_by=None):
     """The streaming val pass with every negative, by the default gate,
-    which must open (the slot-unique protocol).  Returns its MRR and
-    record."""
+    which must open (the slot-unique protocol), or with ``closed_by`` must
+    close for that reason (the column-chunk protocol).  Returns its MRR
+    and record."""
     mrr, seconds, rec, peak = _val_pass(torch, eng)
     res = dict(phase=phase, split="val",
                negatives=int(eng.data.val_ns.shape[1]),
                events=int(eng.data.val_mask.sum()), mrr=mrr,
-               seconds=seconds, **rec, peak_mem_gb=peak)
+               seconds=seconds, **rec, peak_mem_gb=peak,
+               gate_closed_by=sorted(eng._eval_gate_logged))
     emit(res)
     if not 0.0 < mrr <= 1.0:
         raise AssertionError(f"val MRR {mrr} outside (0, 1]")
-    if rec["protocol"] != "slot_unique":
+    want = "slot_unique" if closed_by is None else "column_chunk"
+    if rec["protocol"] != want or res["gate_closed_by"] != (
+            [] if closed_by is None else [closed_by]):
         raise AssertionError(f"the default val pass took the "
-                             f"{rec['protocol']} protocol")
+                             f"{rec['protocol']} protocol, the gate closed "
+                             f"by {res['gate_closed_by']}")
     return res
 
 
@@ -903,11 +1054,12 @@ def _sync_sites(torch, fn):
             if "called a synchronizing CUDA operation" in str(w.message)]
 
 
-def phase_profile(torch, pkg, data, cfg_path, path):
+def phase_profile(torch, pkg, data, cfg_path, path, protocol="slot_unique"):
     """Where the time goes: a traced run of 4 train steps and of the first
-    val batch on a fresh engine of ``path`` (frozen or memory), by the
-    default slot-unique protocol and then by the column-chunk protocol
-    (all its negative chunks).  The kernel busy share is the summed kernel
+    val batch on a fresh engine of ``path`` (frozen, memory or layer2), by
+    the default protocol, which must be ``protocol``, and, where that is
+    slot-unique, then by the column-chunk protocol (all its negative
+    chunks).  The kernel busy share is the summed kernel
     time over the wall time; one minus it is the device's idle share
     (copies run on their own engine).  A run that waits for the device
     more than once (its one metrics fetch) fails: the host would stall on
@@ -921,10 +1073,12 @@ def phase_profile(torch, pkg, data, cfg_path, path):
     eng = pkg.Engine(dataclasses.replace(data, val_mask=cut), cfg)
     eng.train_epoch()                              # warm-up, untraced
 
-    for what, fn in (("train_4_steps", eng.train_epoch),
-                     ("eval_first_val_batch", lambda: eng.evaluate("val")),
-                     ("eval_first_val_batch_column_chunk",
-                      lambda: eng._evaluate_chunked("val"))):
+    runs = [("train_4_steps", eng.train_epoch),
+            ("eval_first_val_batch", lambda: eng.evaluate("val"))]
+    if protocol == "slot_unique":
+        runs.append(("eval_first_val_batch_column_chunk",
+                     lambda: eng._evaluate_chunked("val")))
+    for what, fn in runs:
         wall, busy, copies, top = _profiled(torch, fn)
         trace = (eng.last_epoch_trace if what.startswith("train")
                  else eng.last_eval_trace)
@@ -944,8 +1098,7 @@ def phase_profile(torch, pkg, data, cfg_path, path):
         if len(syncs) > 1:
             raise AssertionError(f"{path} {what} waited for the device "
                                  f"{len(syncs)} times: {sorted(set(syncs))}")
-        if what == "eval_first_val_batch" and \
-                trace["protocol"] != "slot_unique":
+        if what == "eval_first_val_batch" and trace["protocol"] != protocol:
             raise AssertionError(f"{path} {what} took {trace['protocol']}")
 
 
@@ -998,12 +1151,19 @@ def main() -> int:
         phase_reference(torch, pkg)
         phase = "memory_reference"
         phase_memory_reference(torch, pkg)
+        phase = "layer2_reference"
+        phase_layer2_reference(torch, pkg)
+        phase = "vector_reference"
+        phase_vector_reference(torch, pkg)
         phase = "wire"
         data = synthetic("tgbl-wiki")
         cfgs = os.path.join(root, "tgb_tgn_dgl_tpu_torch", "configs")
         cfg_path = os.path.join(cfgs, "TGN.yml")
         mem_cfg_path = os.path.join(cfgs, "TGN-memory.yml")
+        layer2_cfg_path = os.path.join(cfgs, "TGN-2layer.yml")
         phase_wire(torch, data, cfg_path)
+        phase = "layer2_wire"
+        phase_layer2_wire(torch, data, layer2_cfg_path)
         phase = "train"
         attention.reset_launch_counts()
         eng = phase_train(torch, pkg, data, cfg_path)
@@ -1024,24 +1184,56 @@ def main() -> int:
         phase = "memory_eval_unique_vs_chunked"
         phase_eval_unique_vs_chunked(torch, eng, snap, unique, phase)
         del eng, snap
+        phase = "layer2_train"
+        attention.reset_launch_counts()
+        eng = phase_memory_train(torch, pkg, data, layer2_cfg_path, phase)
+        layer2_steps = eng.last_epoch_trace["batches"]
+        phase = "layer2_eval"
+        layer2 = phase_eval(torch, eng, phase, closed_by="gnn.layer>1")
+        layer2_counts = dict(attention.launch_counts)
+        del eng
+        phase = "vector_train"
+        attention.reset_launch_counts()
+        eng = phase_memory_train(torch, pkg, data, mem_cfg_path, phase,
+                                 steps=VECTOR_STEPS, message_mode="vector")
+        phase = "vector_eval"
+        phase_eval(torch, eng, phase)
+        vector_counts = dict(attention.launch_counts)
+        del eng
+        torch.cuda.empty_cache()
         phase = "eval_low_dedup"
         phase_eval_low_dedup(torch, pkg, cfg_path)
         phase = "pad_mask"
         phase_pad_mask(torch, pkg)
         phase = "counters"
-        counts = {k: frozen_counts[k] + memory_counts[k]
+        paths = dict(frozen=frozen_counts, memory=memory_counts,
+                     layer2=layer2_counts, vector=vector_counts)
+        counts = {k: sum(p[k] for p in paths.values())
                   for k in attention.KERNELS}
-        emit(dict(phase="counters", frozen=frozen_counts,
-                  memory=memory_counts, launches=counts))
+        # two attention layers: each kernel twice a step, twice a chunk
+        layer2_want = dict(attention_fwd=0, attention_bwd=0,
+                           attention_fwd_drop=2 * layer2_steps,
+                           attention_bwd_drop=2 * layer2_steps,
+                           attention_fwd_infer=2 * layer2["embed_chunks"])
+        emit(dict(phase="counters", **paths, layer2_expected=layer2_want,
+                  launches=counts))
         idle = [k for k, v in frozen_counts.items() if v == 0]
         idle += [f"{k} (memory path)" for k in MEMORY_PATH_KERNELS
                  if memory_counts[k] == 0]
+        idle += [f"{k} (layer-2 path)" for k in MEMORY_PATH_KERNELS
+                 if layer2_counts[k] == 0]
         if idle:
             raise AssertionError(f"kernels never launched on the main path: "
                                  f"{idle}")
+        if layer2_counts != layer2_want or any(vector_counts.values()):
+            raise AssertionError(
+                f"layer-2 path launches {layer2_counts}, expected "
+                f"{layer2_want}; vector path {vector_counts}")
         phase = "profile"
         phase_profile(torch, pkg, data, cfg_path, "frozen")
         phase_profile(torch, pkg, data, mem_cfg_path, "memory")
+        phase_profile(torch, pkg, data, layer2_cfg_path, "layer2",
+                      protocol="column_chunk")
     except Exception as e:            # report the phase, then fail
         traceback.print_exc()
         emit(dict(phase=phase, ok=False, error=f"{type(e).__name__}: {e}"))

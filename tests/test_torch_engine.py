@@ -418,6 +418,9 @@ def test_cuda_expansion_matches_cpu():
                              times.cuda())
             want = expand_any(wire_to_device(wire, "cpu"), 5, iw, N, times)
             for f in want._fields:
+                if getattr(want, f) is None:    # nbr_rslot at one layer
+                    assert getattr(got, f) is None, (bi, f)
+                    continue
                 a, b = getattr(got, f).cpu(), getattr(want, f)
                 assert a.dtype == b.dtype and torch.equal(a, b), (bi, f)
 
@@ -432,11 +435,9 @@ def test_engine_needs_cuda_unless_asked_for_cpu():
 @pytest.mark.parametrize("section,knobs,name", [
     ("gnn", dict(arch="identity"), "gnn.arch"),
     ("train", dict(compute_dtype="bfloat16"), "compute_dtype"),
-    ("train", dict(remat=True, **MEMORY), "train.remat"),
-    ("gnn", dict(message_mode="vector"), "message_mode"),
-    ("gnn", dict(layer=2), "gnn.layer")],
+    ("train", dict(remat=True, **MEMORY), "train.remat")],
     # "memory": the mailbox memory runs, its remat knob does not
-    ids=["jodie", "bf16", "memory", "vector", "layers"])
+    ids=["jodie", "bf16", "memory"])
 def test_engine_refuses_unported_config(section, knobs, name):
     raw = dict(RAW, **{section: [dict(RAW[section][0], **knobs)]})
     with pytest.raises(NotImplementedError, match=name):

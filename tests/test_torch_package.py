@@ -28,7 +28,8 @@ def _imports(path):
 @pytest.mark.parametrize(
     "path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "ab_attention_cuda.py",
-                                         ROOT / "sweep_attention_bwd.py"],
+                                         ROOT / "sweep_attention_bwd.py",
+                                         ROOT / "trajectory_sensitivity.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     for name in _imports(path):

@@ -168,9 +168,3 @@ def test_local_read_matches_jax():
                                            rtol=GRAD_RTOL, atol=GRAD_ATOL,
                                            err_msg=f"{part}/{k}")
 
-
-def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="vector"):
-        init_tgnn(TGNNConfig(edge_feat_dim=F, message_mode="vector"))
-    with pytest.raises(NotImplementedError, match="layer"):
-        init_tgnn(TGNNConfig(edge_feat_dim=F, num_layers=2))

@@ -4,18 +4,19 @@ counterpart of tgb_tgn_dgl_tpu/data/native_packer.py).
 The same constructor and state API as data/packer.py::StreamPacker
 (``pack``/``insert``/``reset_cache``/``snapshot``/``restore``), with the
 host loops in C++, plus the wire emitters the Engine ships to the device
-(ops/wire.py): ``pack_wire``, ``pack_wire_dedup`` and the one-deep
+(ops/wire.py): ``pack_wire`` (with the same-block root slots of the
+in-edges at ``layers > 1``), ``pack_wire_dedup`` and the one-deep
 pack-ahead ``pack_wire_dedup_submit``/``pack_wire_dedup_fetch``, which
-runs the next batch on the library's own worker thread.  Every output is
-bit-equal to the numpy packer (tests/test_torch_native_packer.py).
+runs the next batch on the library's own worker thread (one layer only,
+as in the JAX package).  Every output is bit-equal to the numpy packer
+(tests/test_torch_native_packer.py, tests/test_torch_multilayer.py).
 
 The library is built with g++ at the first ``NativeStreamPacker``
 (ops/_build.py::host_library); a build that fails raises, and nothing
 falls back to the numpy packer (the JAX package's ``make_stream_packer``
 does; the port has no such factory).  Bound here are only the entry points
-this package calls; the source's others (the multi-layer and
-device-cache emitters, row-level state surgery, the clock-only read) are
-not used yet.
+this package calls; the source's others (the device-cache emitter,
+row-level state surgery, the clock-only read) are not used yet.
 """
 from __future__ import annotations
 
@@ -70,6 +71,9 @@ def _lib() -> ctypes.CDLL:
         i32p, i32p, f32p, f32p,                      # cache + self_dt
         c.c_int64, i32p, i32p, i32p, i32p, f32p,     # intra COO
         i32p, i32p, i32p, f32p, i32p]                # write plan
+    # the same with the (R, K) cache and (Ei,) intra rslot outputs
+    lib.packer_pack_fill_wire2.argtypes = (
+        lib.packer_pack_fill_wire.argtypes + [i32p, i32p])
     lib.packer_pack_fill_wire3.argtypes = [
         vp, c.c_int64, c.c_int64, c.c_int32,
         c.c_int32,                                   # write_mail
@@ -110,10 +114,9 @@ class NativeStreamPacker:
     """API-compatible with StreamPacker; the state lives in C++."""
 
     def __init__(self, num_nodes: int, cfg: PackerConfig):
-        if cfg.layers != 1 or cfg.strategy != "recent":
+        if cfg.strategy != "recent":
             raise NotImplementedError(
-                f"the native packer runs layers=1 with the 'recent' "
-                f"strategy (got layers={cfg.layers}, "
+                f"the native packer runs the 'recent' strategy only (got "
                 f"strategy={cfg.strategy!r})")
         self._lib = _lib()
         self.N = num_nodes
@@ -218,6 +221,9 @@ class NativeStreamPacker:
              eval_mode: bool = False, insert: bool = True,
              write_mail: bool = True) -> Pack:
         """The full-grid Pack, as StreamPacker.pack returns it."""
+        assert self.cfg.layers == 1, (
+            "the native full-grid pack() emits no nbr_rslot; pack_wire "
+            "does at layers > 1")
         cfg = self.cfg
         K = cfg.num_neighbors
         Braw = len(src)
@@ -277,7 +283,8 @@ class NativeStreamPacker:
                   eval_mode: bool = False, insert: bool = True,
                   write_mail: bool = True):
         """Pack one batch straight into a WirePack (no full grids on the
-        host).  Returns (WirePack, intra_width)."""
+        host), with ``cache_rslot``/``ia_rslot`` at ``layers > 1``.
+        Returns (WirePack, intra_width)."""
         from ..ops.wire import WirePack
 
         cfg = self.cfg
@@ -310,14 +317,20 @@ class NativeStreamPacker:
         mw_node, mw_slot = np.empty(W, np.int32), np.empty(W, np.int32)
         mw_partner, mw_eid = np.empty(W, np.int32), np.empty(W, np.int32)
         mw_t = np.empty(W, np.float32)
-        self._lib.packer_pack_fill_wire(
-            self._h, B, R, int(insert), int(write_mail),
-            ev_src, ev_dst, ev_t, ev_idx_out, ev_valid, ev_neg,
-            ev_src_slot, ev_pos_slot, ev_neg_slot,
-            Ub, uniq_nid, root_loc,
-            cache_loc, cache_feat, cache_dt, self_dt,
-            Ei, ia_row, ia_col, ia_loc, ia_feat, ia_dt,
-            mw_node, mw_slot, mw_partner, mw_t, mw_eid)
+        args = [self._h, B, R, int(insert), int(write_mail),
+                ev_src, ev_dst, ev_t, ev_idx_out, ev_valid, ev_neg,
+                ev_src_slot, ev_pos_slot, ev_neg_slot,
+                Ub, uniq_nid, root_loc,
+                cache_loc, cache_feat, cache_dt, self_dt,
+                Ei, ia_row, ia_col, ia_loc, ia_feat, ia_dt,
+                mw_node, mw_slot, mw_partner, mw_t, mw_eid]
+        cache_rslot = ia_rslot = None
+        if cfg.layers > 1:
+            cache_rslot = np.empty((R, K), np.int32)
+            ia_rslot = np.empty(Ei, np.int32)
+            self._lib.packer_pack_fill_wire2(*args, cache_rslot, ia_rslot)
+        else:
+            self._lib.packer_pack_fill_wire(*args)
         wire = WirePack(
             ev_src=ev_src, ev_dst=ev_dst, ev_t=ev_t, ev_idx=ev_idx_out,
             ev_valid=ev_valid.astype(bool),
@@ -331,6 +344,7 @@ class NativeStreamPacker:
             ia_dt=ia_dt,
             mw_node=mw_node, mw_slot=mw_slot, mw_partner=mw_partner,
             mw_t=mw_t, mw_eid=mw_eid,
+            cache_rslot=cache_rslot, ia_rslot=ia_rslot,
         )
         return wire, P
 
@@ -429,11 +443,12 @@ class NativeStreamPacker:
                                eval_mode: bool = False, insert: bool = True,
                                write_mail: bool = True) -> bool:
         """Start packing on the C++ worker.  Returns False when the batch
-        cannot take the dedup wire at all (the caller packs it
-        synchronously); P > 255 shows at fetch."""
+        cannot take the dedup wire at all: empty, over the batch size, or
+        ``layers > 1`` (the dedup wire carries no rslot); the caller then
+        packs it synchronously.  P > 255 shows at fetch."""
         cfg = self.cfg
         Braw = len(src)
-        if Braw == 0 or Braw > cfg.batch_size:
+        if Braw == 0 or Braw > cfg.batch_size or cfg.layers != 1:
             return False
         neg2d = np.ascontiguousarray(
             np.asarray(neg, np.int32).reshape(Braw, -1))

@@ -78,6 +78,14 @@ class DevicePack(NamedTuple):
     mw_partner: "np.ndarray"
     mw_t: "np.ndarray"
     mw_eid: "np.ndarray"
+    # gnn.layer > 1 (PackerConfig.layers > 1): per in-edge, the root slot
+    # of (source node, SAME dependency block), or -1.  Layer l > 1 reads
+    # the source's layer-(l-1) embedding through it; -1 = the source has
+    # no root slot in this block, so its features pass through unchanged
+    # (the reference's zero-in-degree identity residual,
+    # model_utils.py:567-577 + commented layer stack :669-686).  None at
+    # one layer.
+    nbr_rslot: "Optional[np.ndarray]" = None
 
 
 class Pack(NamedTuple):
@@ -118,6 +126,9 @@ class Pack(NamedTuple):
     num_blocks: int
     num_real_events: int
     num_real_roots: int
+    # (R, Kp) int32 same-block root slot per in-edge (see DevicePack);
+    # None when PackerConfig.layers == 1
+    nbr_rslot: Optional[np.ndarray] = None
 
     def device(self) -> DevicePack:
         return DevicePack(**{f: getattr(self, f)
@@ -170,7 +181,7 @@ class PackerConfig:
     strategy: str = "recent"         # 'recent' | 'uniform' (TGL sampler knob)
     mailbox_size: int = 1            # S (config memory.mailbox_size)
     seed: int = 0
-    # gnn.layer; the native packer (data/native_packer.py) runs 1 only
+    # gnn.layer; above 1 the pack carries nbr_rslot
     layers: int = 1
 
 
@@ -415,6 +426,29 @@ class StreamPacker:
                     nbr_feat[off + j, col] = ev_idx[take]
                     nbr_dt[off + j, col] = t[take] - self.clock[partners]
 
+        # --- multi-layer: same-block root-slot index per in-edge ----------
+        # Layer l > 1 reads a source's layer-(l-1) embedding iff the source
+        # has a root slot in the SAME dependency block (the reference's
+        # commented layer stack runs every conv over one in_subgraph whose
+        # vertices are that sub-block's roots, model_utils.py:99,669-686;
+        # a non-root source has zero in-degree there and passes its input
+        # through the identity residual, :567-577,541-546).
+        nbr_rslot = None
+        if cfg.layers > 1:
+            nbr_rslot = np.full((R, Kp), -1, np.int32)
+            for i in range(k):
+                off = offsets[i]
+                roots_i = root_nid_parts[i]            # sorted unique
+                n_i = len(roots_i)
+                if n_i == 0:
+                    continue
+                rows = slice(off, off + n_i)
+                sub_nid = nbr_nid[rows]
+                idx = np.minimum(np.searchsorted(roots_i, sub_nid), n_i - 1)
+                found = ((roots_i[idx] == sub_nid)
+                         & (nbr_kind[rows] != KIND_INVALID))
+                nbr_rslot[rows] = np.where(found, off + idx, -1)
+
         # --- memory read set + local index maps ---------------------------
         # uniq = every node whose memory rows the model reads: roots
         # (event endpoints + negatives) ∪ cache neighbors.  Intra-batch
@@ -498,6 +532,7 @@ class StreamPacker:
             num_blocks=k,
             num_real_events=Braw,
             num_real_roots=total_roots,
+            nbr_rslot=nbr_rslot,
         )
 
         if insert:
@@ -506,10 +541,11 @@ class StreamPacker:
 
 
 def to_device(pack: Pack, device) -> DevicePack:
-    """Every ``Pack.device()`` field as a torch tensor on ``device``.  For a
-    CUDA device the host arrays go through pinned memory and a
-    ``non_blocking`` copy on the current stream; the caching host allocator
-    keeps each pinned buffer alive until its copy has run."""
+    """Every ``Pack.device()`` field as a torch tensor on ``device``
+    (``nbr_rslot`` stays None at one layer).  For a CUDA device the host
+    arrays go through pinned memory and a ``non_blocking`` copy on the
+    current stream; the caching host allocator keeps each pinned buffer
+    alive until its copy has run."""
     device = torch.device(device)
     pinned = device.type == "cuda"
 
@@ -519,4 +555,5 @@ def to_device(pack: Pack, device) -> DevicePack:
             t = t.pin_memory()
         return t.to(device, non_blocking=pinned)
 
-    return DevicePack(*(put(a) for a in pack.device()))
+    return DevicePack(*(None if a is None else put(a)
+                        for a in pack.device()))

@@ -2,7 +2,9 @@
 tgb_tgn_dgl_tpu/engine/train.py, slimmed to the single-device TGN path,
 with the frozen all-ones memory (the reference-parity configuration,
 ``train.frozen_memory: True``) or the mailbox memory with a GRU/RNN cell
-(``configs/TGN-memory.yml``, models/memory.py).
+(``configs/TGN-memory.yml``, models/memory.py), scalar or vector
+messages, and one or more stacked attention layers
+(``configs/TGN-2layer.yml``).
 
 Pipeline per batch, as the JAX Engine runs it by default: the native
 packer (data/native_packer.py, csrc/packer.cpp) packs the batch one
@@ -14,15 +16,20 @@ there with torch gathers → one train step (forward, BCE, backward, Adam)
 or, at eval, the embedding and scoring of the batch.  A train batch or
 column-chunk eval chunk whose intra window exceeds 255 does not fit the
 dedup wire: it is packed again on this thread into the compact wire (or,
-where that does not fit either, the plain WirePack).
+where that does not fit either, the plain WirePack).  At gnn.layer > 1
+the packer does not run ahead: the dedup wire carries no same-block root
+slots, so every batch and chunk is packed on this thread, when it is
+reached, into the compact wire with its rslot fields (the JAX Engine's
+``sync_pack``).
 
 Eval runs the slot-unique protocol (the JAX Engine's default): each
 batch is packed once with all its negatives, every unique (node, block)
 root slot is embedded once, in chunks of at most ``EVAL_UNIQUE_SLOTS``
 slots into one table, and ranks come from gathers into it.  Where the
-stream cannot take it (an intra cap over 255 or none, a negative
-timestamp, over 65,536 blocks in a batch), the engine says why once and
-runs the column-chunk protocol, which gives the same ranks and state.
+stream cannot take it (gnn.layer > 1, an intra cap over 255 or none, a
+negative timestamp, over 65,536 blocks in a batch), the engine says why
+once and runs the column-chunk protocol, which gives the same ranks and
+state.
 The port has no ``eval_slot_unique`` knob and no JAX "auto" dedup
 estimate: slot-unique embeds at most the root slots column chunks do,
 whatever the dedup.  Protocol fidelity:
@@ -51,7 +58,7 @@ passes ``device="cpu"``; there is no silent fallback to the CPU.
 
 Not ported yet (NotImplementedError): JODIE/DyRep (``gnn.arch``, and
 with it slot-unique eval's eager-mail branch), ``train.remat``, 'uniform'
-sampling, bfloat16 compute, vector messages, gnn.layer > 1.
+sampling, bfloat16 compute.
 """
 from __future__ import annotations
 
@@ -238,7 +245,19 @@ class Engine:
         order is stream order, and the pending job is fetched before the
         generator ends, so nothing past ``jobs`` is packed.
         ``tm["fetch_s"]`` gathers the time spent in the packer's fetch (the
-        wait for the worker and the read of its buffers)."""
+        wait for the worker and the read of its buffers).
+
+        At gnn.layer > 1 the worker cannot take the job (its dedup wire
+        carries no rslot; JAX ``sync_pack``, engine/train.py:1546-1597):
+        each job is packed on this thread when it is reached, and
+        ``tm["fetch_s"]`` takes that whole pack."""
+        if self.config.gnn.layer > 1:
+            for job in jobs:
+                t0 = time.perf_counter()
+                out = self._pack_wire(job[1], job[2])
+                tm["fetch_s"] += time.perf_counter() - t0
+                yield job[0], out
+            return
 
         def fetch(job):
             t0 = time.perf_counter()
@@ -350,9 +369,10 @@ class Engine:
         mean AUC and the number of events.  ``last_epoch_trace`` holds
         ``pack_s``, the time this thread spent getting each next device
         wire (the wait for the packer, the submit of the next batch, the
-        copy's enqueue), its parts ``fetch_s`` in the packer's fetch and
-        ``copy_s`` in ``wire_to_device``, and ``disp_s``, the time it spent
-        dispatching the expansion and the train step."""
+        copy's enqueue), its parts ``fetch_s`` in the packer's fetch (at
+        gnn.layer > 1 the whole pack, on this thread) and ``copy_s`` in
+        ``wire_to_device``, and ``disp_s``, the time it spent dispatching
+        the expansion and the train step."""
         self.packer.reset_cache()
         if self.use_memory:
             # memory and cache reset together (pyg_epoch_utils.py:11-16)
@@ -437,13 +457,16 @@ class Engine:
         """The block-id bucket of ``split``'s eval-lean wires where the
         slot-unique protocol can run, else None (tgb_tgn_dgl_tpu
         engine/train.py:693-752).  Only the checks that can fail in the
-        port are kept: the dedup wire is always on, there is no
-        device-cache mode, gnn.layer > 1 is refused, and slot-unique is
-        taken whatever the dedup, with no knob to turn it off."""
+        port are kept: the dedup wire is always on at one layer, there is
+        no device-cache mode, and slot-unique is taken whatever the dedup,
+        with no knob to turn it off."""
         blocks = self.blocks_for(split)
         cap = self.config.train.max_intra_block
         t = self.data.t
         for ok, reason in (
+                # the eval-lean dedup wire carries no rslot, and a layer-2
+                # root's sources may fall in another embed chunk
+                (self.config.gnn.layer == 1, "gnn.layer>1"),
                 # an intra window over 255 cannot take the dedup wire, and
                 # this protocol cannot restart a half-streamed split with
                 # another wire

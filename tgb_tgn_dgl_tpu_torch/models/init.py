@@ -12,13 +12,15 @@ Random streams.  The JAX package derives one dropout key per consumer
 random number from one ``torch.Generator`` in a fixed order instead:
 
   * init: ``Engine`` seeds a CPU generator with ``train.seed`` and draws
-    the leaves in the order of ``models/tgnn.init_tgnn``, then, with the
-    mailbox memory, the cell's ``w_ih``, ``w_hh``, ``b_ih``, ``b_hh``
+    the leaves in the order of ``models/tgnn.init_tgnn`` (``gat``,
+    ``pred``, then ``gat2`` … ``gat{L}``), then, with the mailbox memory,
+    the cell's ``w_ih``, ``w_hh``, ``b_ih``, ``b_hh``
     (``models/memory.init_memory``);
   * dropout: ``Engine`` seeds a generator on its device with
-    ``train.seed + 1``; each train step draws, in order, the masks of the
-    source features, the root features, the edge features, the time
-    encoding and the attention probabilities (``tgnn_embed``).
+    ``train.seed + 1``; each train step draws, layer by layer and in this
+    order within a layer, the masks of the source features, the root
+    features, the edge features, the time encoding and the attention
+    probabilities (``tgnn_embed``).
 
 The two frameworks give different numbers from the same seed, so parity
 tests run at dropout 0 or hand both sides the same mask.

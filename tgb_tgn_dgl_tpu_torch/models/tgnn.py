@@ -1,5 +1,6 @@
 """TGNN — the flagship model — on torch: the port's counterpart of
-tgb_tgn_dgl_tpu/models/tgnn.py, scalar message mode, one layer.
+tgb_tgn_dgl_tpu/models/tgnn.py, scalar and vector message modes, one to
+eight stacked attention layers.
 
 Re-design of reference model_utils.py:14-159 (TGNN), :201-237
 (TimeEncode), :422-455 (TemporalEdgePreprocess), :471-612 (EdgeGATConv),
@@ -19,7 +20,23 @@ Faithful quirks preserved: scalar per-head messages broadcast-added to the
 identity residual and averaged over heads (model_utils.py:560-563,
 587-599); the frozen all-ones memory (``const_ones_memory``,
 model_utils.py:270-271); each source paired with its own negatives (the
-reference's eval tile bug is not replicated).
+reference's eval tile bug is not replicated).  ``message_mode='vector'``
+is the corrected per-head vector-message attention: (R, Kp, H, D)
+projections, messages ``a ⊙ (node_p + edge_p)``, head mean of
+``out + dst_in``.  It runs as plain torch on both devices, as the JAX
+package runs it outside Pallas; the scalar mode's softmax and weighted
+sum go through ``ops/attention.attention_core`` (the CUDA kernels on the
+GPU) at every layer.
+
+``num_layers`` > 1 stacks EdgeGATConv layers over the SAME per-block
+in-edge grid (the reference's commented layer stack, model_utils.py:
+669-686): layer l > 1 reads, for each in-edge, the source's layer-(l-1)
+embedding where the source is a root of the same dependency block
+(``pack.nbr_rslot`` >= 0), else its raw node features (the zero-in-degree
+identity residual, :567-577), and the roots' layer-(l-1) embeddings; its
+parameters are ``gat{l}``, shaped as ``gat``.  Intermediate layers
+aggregate heads by mean, as the last one does (the JAX package's
+documented deviation on dead code).
 
 Node features come from one of three places: literal ones (the frozen
 memory), a full (N, D) table gathered by node id, or (``local=True``) the
@@ -28,13 +45,10 @@ through the packer's ``nbr_loc``/``root_loc`` maps.  With the mailbox
 memory the model holds the memory's parameters as its ``memory``
 submodule, so they share the model's state dict and optimizer, as the
 JAX tree's ``params["memory"]`` does.
-
-Not ported yet (raise NotImplementedError): message_mode 'vector' and
-num_layers > 1.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -42,6 +56,7 @@ from torch.nn.functional import embedding
 
 from ..data.packer import KIND_INVALID, KIND_SELF
 from ..ops.attention import attention_core
+from ..ops.segment import masked_softmax
 from ..ops.time_encode import TimeEncode
 from .init import (dropout, dropout_mask, linear_default, linear_xavier,
                    xavier_normal)
@@ -61,15 +76,18 @@ class TGNNConfig(NamedTuple):
     const_ones_memory: bool = False
 
 
+# the JAX embed's dropout-key budget caps the stack (tgb_tgn_dgl_tpu
+# models/tgnn.py:263); the port keeps the same limit
+MAX_LAYERS = 8
+
+
 def check_supported(cfg: TGNNConfig) -> None:
-    if cfg.message_mode != "scalar":
-        raise NotImplementedError(
-            f"message_mode={cfg.message_mode!r}: the port runs the scalar "
-            f"mode only so far")
-    if cfg.num_layers != 1:
-        raise NotImplementedError(
-            f"gnn.layer={cfg.num_layers}: the port runs one layer only so "
-            f"far")
+    if cfg.message_mode not in ("scalar", "vector"):
+        raise ValueError(f"message_mode={cfg.message_mode!r}: expected "
+                         f"'scalar' or 'vector'")
+    if not 1 <= cfg.num_layers <= MAX_LAYERS:
+        raise ValueError(f"gnn.layer={cfg.num_layers}: must be within 1.."
+                         f"{MAX_LAYERS}")
 
 
 class GATLayer(nn.Module):
@@ -111,37 +129,52 @@ class EdgePredictor(nn.Module):
 
 
 class TGNN(nn.Module):
-    """``memory`` (models/memory.Memory) is None for the frozen path."""
+    """``gats`` holds one GATLayer per attention layer: the first is
+    ``gat``, layer l > 1 is ``gat{l}`` (the JAX tree's keys).  ``memory``
+    (models/memory.Memory) is None for the frozen path."""
 
-    def __init__(self, time: TimeEncode, gat: GATLayer, pred: EdgePredictor,
-                 memory: Optional[nn.Module] = None):
+    def __init__(self, time: TimeEncode, gats: Sequence[GATLayer],
+                 pred: EdgePredictor, memory: Optional[nn.Module] = None):
         super().__init__()
         self.time = time
-        self.gat = gat
+        self.gat = gats[0]
         self.pred = pred
         self.memory = memory
+        for l, gat in enumerate(gats[1:], start=2):
+            setattr(self, f"gat{l}", gat)
+
+    def layer(self, l: int) -> GATLayer:
+        """The parameters of attention layer ``l`` (0-based)."""
+        return self.gat if l == 0 else getattr(self, f"gat{l + 1}")
 
 
 def init_tgnn(cfg: TGNNConfig,
               generator: Optional[torch.Generator] = None) -> TGNN:
     """Build the model on the CPU with the reference's init distributions
     (time_dim = hidden_dim, as the reference overrides its time_dim
-    argument, model_utils.py:18)."""
+    argument, model_utils.py:18).  Leaves are drawn in the order ``gat``,
+    ``pred``, then ``gat2`` … ``gat{L}`` (models/init.py)."""
     check_supported(cfg)
     D = cfg.hidden_dim
     H = cfg.num_heads
     De = cfg.edge_feat_dim + D       # edge feat ⊕ time encoding
-    gat = GATLayer(
-        fc_node=linear_xavier(D, H * D, generator=generator),
-        fc_edge=linear_xavier(De, H * D, generator=generator),
-        attn_l=xavier_normal((1, H, D), generator=generator)[0],
-        attn_r=xavier_normal((1, H, D), generator=generator)[0],
-        attn_e=xavier_normal((1, H, D), generator=generator)[0],
-    )
+
+    def gat_layer():
+        return GATLayer(
+            fc_node=linear_xavier(D, H * D, generator=generator),
+            fc_edge=linear_xavier(De, H * D, generator=generator),
+            attn_l=xavier_normal((1, H, D), generator=generator)[0],
+            attn_r=xavier_normal((1, H, D), generator=generator)[0],
+            attn_e=xavier_normal((1, H, D), generator=generator)[0],
+        )
+
+    gat = gat_layer()
     pred = EdgePredictor(linear_default(D, D, generator),
                          linear_default(D, D, generator),
                          linear_default(D, 1, generator))
-    return TGNN(TimeEncode(D), gat, pred)
+    # every layer has the same shapes, since memory_dim == hidden_dim
+    extra = [gat_layer() for _ in range(cfg.num_layers - 1)]
+    return TGNN(TimeEncode(D), [gat, *extra], pred)
 
 
 def _fused_attn_proj(lin: nn.Linear, attn: torch.Tensor):
@@ -156,22 +189,75 @@ def _fused_attn_proj(lin: nn.Linear, attn: torch.Tensor):
     return w_eff, b_eff
 
 
+def _scalar_layer(gat: GATLayer, cfg: TGNNConfig, src_d, dst_d, ef_d, te_d,
+                  mask, generator, det: bool) -> torch.Tensor:
+    """One scalar-mode EdgeGATConv pass over the grid: the fused
+    (D_in → H) projections, then ``attention_core`` (the kernels on CUDA),
+    the identity residual and the head mean."""
+    F = ef_d.shape[-1]
+    wl, bl = _fused_attn_proj(gat.fc_node, gat.attn_l)
+    wr, br = _fused_attn_proj(gat.fc_node, gat.attn_r)
+    we, be = _fused_attn_proj(gat.fc_edge, gat.attn_e)
+    el = src_d @ wl + bl                       # (R, Kp, H)
+    er = dst_d @ wr + br                       # (R, H)
+    ee = ef_d @ we[:F] + te_d @ we[F:] + be
+    el_prime = el + ee
+    dm = None
+    if not det and cfg.attn_drop > 0.0:
+        dm = dropout_mask(el_prime.shape, cfg.attn_drop, generator,
+                          el_prime.device)
+    out = attention_core(el_prime, er, mask, cfg.negative_slope,
+                         drop_mask=dm)         # (R, H)
+    # identity residual + head mean: mean_h(out_h + dst_in_d)
+    return dst_d + torch.mean(out, dim=-1, keepdim=True)
+
+
+def _vector_layer(gat: GATLayer, cfg: TGNNConfig, src_d, dst_d, ef_d, te_d,
+                  mask, generator, det: bool) -> torch.Tensor:
+    """One vector-mode EdgeGATConv pass (tgb_tgn_dgl_tpu
+    models/tgnn.py:240-257), plain torch: per-head (R, Kp, H, D)
+    projections, logits el + ee + er, masked softmax, attention dropout,
+    messages ``a ⊙ (node_p + edge_p)`` summed over the columns, and the
+    head mean of ``out + dst_in``."""
+    H, D = cfg.num_heads, cfg.hidden_dim
+    F = ef_d.shape[-1]
+    node_p = gat.fc_node(src_d).unflatten(-1, (H, D))     # (R, Kp, H, D)
+    root_p = gat.fc_node(dst_d).unflatten(-1, (H, D))     # (R, H, D)
+    w = gat.fc_edge.weight                                # (H·D, F + D)
+    edge_p = (ef_d @ w[:, :F].T + te_d @ w[:, F:].T
+              + gat.fc_edge.bias).unflatten(-1, (H, D))
+    el = torch.sum(node_p * gat.attn_l, dim=-1)           # (R, Kp, H)
+    er = torch.sum(root_p * gat.attn_r, dim=-1)           # (R, H)
+    ee = torch.sum(edge_p * gat.attn_e, dim=-1)
+    x = el + ee + er[:, None, :]
+    logits = torch.where(x >= 0, x, x * cfg.negative_slope)
+    a = masked_softmax(logits, mask[..., None], dim=1)
+    a = dropout(a, cfg.attn_drop, generator, det)
+    out = torch.sum(a[..., None] * (node_p + edge_p), dim=1)   # (R, H, D)
+    return torch.mean(out + dst_d[:, None, :], dim=1)
+
+
 def tgnn_embed(model: TGNN, cfg: TGNNConfig, memory: Optional[torch.Tensor],
                feats_table: torch.Tensor, pack, *, train: bool,
                generator: Optional[torch.Generator] = None,
                local: bool = False) -> torch.Tensor:
     """Embed every root slot of a device pack: returns (R, D).
 
-    One dense pass = TemporalEdgePreprocess (Δt encode ⊕ edge feat,
-    model_utils.py:440-449) + EdgeGATConv (attention logits el+ee+er,
-    leaky-relu, per-root softmax, weighted sum, residual, head mean,
-    model_utils.py:565-612,688-697) across ALL dependency blocks at once.
-    ``memory`` is the (N, D) node memory, or with ``local`` the (U, D)
-    rows of the batch's read set; unused (may be None) when
-    ``cfg.const_ones_memory`` and not ``local``."""
+    One dense pass a layer = TemporalEdgePreprocess (Δt encode ⊕ edge
+    feat, model_utils.py:440-449) + EdgeGATConv (attention logits
+    el+ee+er, leaky-relu, per-root softmax, weighted sum, residual, head
+    mean, model_utils.py:565-612,688-697) across ALL dependency blocks at
+    once.  ``memory`` is the (N, D) node memory, or with ``local`` the
+    (U, D) rows of the batch's read set; unused (may be None) when
+    ``cfg.const_ones_memory`` and not ``local``.  Above one layer the pack
+    must carry ``nbr_rslot``."""
     check_supported(cfg)
     D = cfg.hidden_dim
     det = not train
+    rslot = pack.nbr_rslot
+    if cfg.num_layers > 1 and rslot is None:
+        raise ValueError("gnn.layer > 1 needs nbr_rslot in the pack "
+                         "(PackerConfig.layers = gnn.layer)")
 
     kind = pack.nbr_kind                       # (R, Kp) int8
     mask = kind != KIND_INVALID                # (R, Kp)
@@ -182,7 +268,6 @@ def tgnn_embed(model: TGNN, cfg: TGNNConfig, memory: Optional[torch.Tensor],
     ef = feats_table[feat_idx]                 # (R, Kp, F)
     ef = torch.where((kind == KIND_SELF)[..., None], 1.0, ef)
     ef = torch.where(mask[..., None], ef, 0.0)
-    F = ef.shape[-1]
 
     # ---- Δt time encoding (TemporalEdgePreprocess) ----------------------
     te = model.time(pack.nbr_dt)               # (R, Kp, D)
@@ -204,28 +289,29 @@ def tgnn_embed(model: TGNN, cfg: TGNNConfig, memory: Optional[torch.Tensor],
         nf_src = memory[pack.nbr_nid.long()]   # (R, Kp, D)
         nf_dst = memory[pack.root_nid.long()]  # (R, D)
 
-    # dropout draws, in this order, from one generator (models/init.py)
-    src_d = dropout(nf_src, cfg.feat_drop, generator, det)
-    dst_d = dropout(nf_dst, cfg.feat_drop, generator, det)
-    ef_d = dropout(ef, cfg.feat_drop, generator, det)
-    te_d = dropout(te, cfg.feat_drop, generator, det)
-
-    gat = model.gat
-    wl, bl = _fused_attn_proj(gat.fc_node, gat.attn_l)
-    wr, br = _fused_attn_proj(gat.fc_node, gat.attn_r)
-    we, be = _fused_attn_proj(gat.fc_edge, gat.attn_e)
-    el = src_d @ wl + bl                       # (R, Kp, H)
-    er = dst_d @ wr + br                       # (R, H)
-    ee = ef_d @ we[:F] + te_d @ we[F:] + be
-    el_prime = el + ee
-    dm = None
-    if not det and cfg.attn_drop > 0.0:
-        dm = dropout_mask(el_prime.shape, cfg.attn_drop, generator,
-                          el_prime.device)
-    out = attention_core(el_prime, er, mask, cfg.negative_slope,
-                         drop_mask=dm)         # (R, H)
-    # identity residual + head mean: mean_h(out_h + dst_in_d)
-    return dst_d + torch.mean(out, dim=-1, keepdim=True)
+    gat_pass = (_scalar_layer if cfg.message_mode == "scalar"
+                else _vector_layer)
+    embed = None
+    for l in range(cfg.num_layers):
+        if l == 0:
+            src_in, dst_in = nf_src, nf_dst
+        else:
+            # a source rooted in the same block reads its layer-(l-1)
+            # embedding, any other its raw features; embedding() again for
+            # the backward, since every -1 cell clamps to slot 0
+            rs = rslot.long()
+            src_in = torch.where((rs >= 0)[..., None],
+                                 embedding(rs.clamp_min(0), embed), nf_src)
+            dst_in = embed
+        # each layer draws its masks, in this order, from one generator
+        # (models/init.py)
+        src_d = dropout(src_in, cfg.feat_drop, generator, det)
+        dst_d = dropout(dst_in, cfg.feat_drop, generator, det)
+        ef_d = dropout(ef, cfg.feat_drop, generator, det)
+        te_d = dropout(te, cfg.feat_drop, generator, det)
+        embed = gat_pass(model.layer(l), cfg, src_d, dst_d, ef_d, te_d, mask,
+                         generator, det)
+    return embed
 
 
 def tgnn_forward(model: TGNN, cfg: TGNNConfig,

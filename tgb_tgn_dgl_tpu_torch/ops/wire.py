@@ -12,7 +12,9 @@ unchanged.  Three formats, as in the JAX package:
   * ``CompactWire``: a WirePack with uint16/uint8 index fields, the
     intra feature as a batch position, and the mailbox plan as one slot
     per event direction.  The Engine ships it for a batch that the dedup
-    wire cannot carry (an intra window over 255).
+    wire cannot carry (an intra window over 255), and for every batch at
+    gnn.layer > 1, where it and the WirePack carry the same-block root
+    slots of the in-edges (``cache_rslot``, ``ia_rslot``).
   * ``DedupWire``, the Engine's wire: cache rows
     once per unique root node, the intra COO as per-slot windows into one
     node-major entry table, and at eval (``eval_lean_dedup``) no Δt at all:
@@ -45,6 +47,10 @@ import torch
 from ..data.packer import KIND_CACHE, KIND_INTRA, KIND_SELF, DevicePack
 
 Array = "np.ndarray | torch.Tensor"
+# a CompactWire's rslot fields ship as u16 while every slot (R - 1) is at
+# most RSLOT_U16_MAX, with RSLOT_NONE_U16 for -1 ("no same-block root")
+RSLOT_U16_MAX = 0xFFFE
+RSLOT_NONE_U16 = 0xFFFF
 
 
 class WirePack(NamedTuple):
@@ -73,6 +79,11 @@ class WirePack(NamedTuple):
     mw_partner: Array
     mw_t: Array
     mw_eid: Array
+    # gnn.layer > 1: the same-block root slot of each cache / intra in-edge,
+    # or -1 (data/packer.py nbr_rslot; the self column is the row's own
+    # slot, rebuilt on the device).  None at one layer.
+    cache_rslot: Optional[Array] = None   # (R, K)
+    ia_rslot: Optional[Array] = None      # (Ei,)
 
 
 class CompactWire(NamedTuple):
@@ -104,6 +115,10 @@ class CompactWire(NamedTuple):
     ia_pos: Array         # (Ei,) u16|i32 batch position of the event
     ia_dt: Array          # (Ei,) f32
     mw_slot: Array        # (2B,) u8 (255 = no write) | i32 (-1)
+    # gnn.layer > 1: u16 with 0xFFFF for -1 while R - 1 <= 0xFFFE, else
+    # i32 with -1; None at one layer
+    cache_rslot: Optional[Array] = None   # (R, K)
+    ia_rslot: Optional[Array] = None      # (Ei,)
 
 
 class DedupWire(NamedTuple):
@@ -211,6 +226,14 @@ def compact_wire(wire: WirePack, num_nodes: int, intra_width: int,
         a = np.asarray(a)
         return a.astype(np.uint16 if maxval <= 0xFFFF else np.int32)
 
+    def enc_rslot(a):
+        if a is None:
+            return None
+        a = np.asarray(a)
+        if R - 1 <= RSLOT_U16_MAX:
+            return np.where(a < 0, RSLOT_NONE_U16, a).astype(np.uint16)
+        return a.astype(np.int32)
+
     return CompactWire(
         ev_src=enc(ev_src, N - 1), ev_dst=enc(ev_dst, N - 1),
         ev_t=np.asarray(wire.ev_t, np.float32),
@@ -234,6 +257,8 @@ def compact_wire(wire: WirePack, num_nodes: int, intra_width: int,
         ia_pos=enc(pos, B - 1),
         ia_dt=np.asarray(wire.ia_dt, np.float32),
         mw_slot=mw_slot,
+        cache_rslot=enc_rslot(wire.cache_rslot),
+        ia_rslot=enc_rslot(wire.ia_rslot),
     )
 
 
@@ -383,6 +408,19 @@ def _mw_from_slots(mw_slot, ev_src, ev_dst, ev_t, ev_idx, num_nodes):
             torch.where(mvalid, per_direction(ev_idx, ev_idx), 0))
 
 
+def _decode_rslot(a, R: int):
+    """A CompactWire rslot field on the device -> int32 with -1.  The
+    encoding follows from R alone (``compact_wire``): in the u16 one the
+    field arrives widened by ``wire_to_device``, so its -1 sentinel reads
+    0xFFFF and must become -1 before any gather uses it."""
+    if a is None:
+        return None
+    a = _i32(a)
+    if R - 1 <= RSLOT_U16_MAX:
+        return torch.where(a == RSLOT_NONE_U16, -1, a)
+    return a
+
+
 def uncompact_wire(cw: CompactWire, num_nodes: int) -> WirePack:
     """Device-side inverse of compact_wire: bit-equal to the WirePack."""
     ev_src, ev_dst, ev_idx = _i32(cw.ev_src), _i32(cw.ev_dst), _i32(cw.ev_idx)
@@ -403,6 +441,8 @@ def uncompact_wire(cw: CompactWire, num_nodes: int) -> WirePack:
         ia_feat=ia_feat, ia_dt=cw.ia_dt,
         mw_node=mw_node, mw_slot=mw_slot, mw_partner=mw_partner,
         mw_t=mw_t, mw_eid=mw_eid,
+        cache_rslot=_decode_rslot(cw.cache_rslot, R),
+        ia_rslot=_decode_rslot(cw.ia_rslot, R),
     )
 
 
@@ -540,8 +580,10 @@ def expand_wire(wire, num_neighbors: int, intra_width: int,
                 num_nodes: int) -> DevicePack:
     """The full DevicePack from a WirePack or a CompactWire: the intra COO
     scatters into (R + 1, P) grids whose last row takes the padding (every
-    real (row, col) pair is unique).  Bit-equal to ``to_device`` of the
-    numpy pack."""
+    real (row, col) pair is unique).  With the rslot fields (gnn.layer > 1)
+    ``nbr_rslot`` is the cache columns, then the self column (the row's own
+    slot on valid rows, -1 on padding), then the intra columns scattered
+    at -1.  Bit-equal to ``to_device`` of the numpy pack."""
     if isinstance(wire, CompactWire):
         wire = uncompact_wire(wire, num_nodes)
     P = intra_width
@@ -568,6 +610,13 @@ def expand_wire(wire, num_neighbors: int, intra_width: int,
         wire.cache_loc, wire.cache_feat.clamp_min(0), wire.cache_dt,
         cache_valid.to(torch.int8) * KIND_CACHE, wire.root_loc, root_valid,
         self_dt, intra, wire.uniq_nid, num_nodes, pad_loc)
+    nbr_rslot = None
+    if wire.cache_rslot is not None:
+        own = torch.arange(R, dtype=torch.int32, device=root_valid.device)
+        cols = [wire.cache_rslot, torch.where(root_valid, own, -1)[:, None]]
+        if P > 0:
+            cols.append(scatter(-1, wire.ia_rslot))
+        nbr_rslot = torch.cat(cols, dim=1)
     return DevicePack(
         ev_src=wire.ev_src, ev_dst=wire.ev_dst, ev_t=wire.ev_t,
         ev_idx=wire.ev_idx, ev_valid=wire.ev_valid, ev_neg=wire.ev_neg,
@@ -579,6 +628,7 @@ def expand_wire(wire, num_neighbors: int, intra_width: int,
         uniq_nid=wire.uniq_nid, root_loc=wire.root_loc, nbr_loc=nbr_loc,
         mw_node=wire.mw_node, mw_slot=wire.mw_slot,
         mw_partner=wire.mw_partner, mw_t=wire.mw_t, mw_eid=wire.mw_eid,
+        nbr_rslot=nbr_rslot,
     )
 
 

@@ -1,8 +1,8 @@
 """Config system: the TGL 4-section YAML schema, typed and validated.
 
 The port's copy of tgb_tgn_dgl_tpu/utils/config.py.  It keeps the schema
-fields (so the same ``configs/TGN.yml`` and ``configs/TGN-memory.yml``
-parse in both packages) and the train knobs the port reads.  The JAX
+fields (so the same ``configs/TGN.yml``, ``configs/TGN-memory.yml`` and
+``configs/TGN-2layer.yml`` parse in both packages) and the train knobs the port reads.  The JAX
 package's transport and dispatch knobs (``wire_compact``, ``wire_dedup``,
 the train-lean and blob wires, fused steps, device-cache mode,
 ``eval_slot_unique``, rng_impl, use_pallas) have no counterpart here: the
@@ -12,8 +12,12 @@ structural gate opens (engine/train.py); a config that sets one of those
 knobs is refused as an unknown key rather than ignored.
 
 Knobs the schema carries but the port does not run yet (JODIE/DyRep,
-``train.remat``, vector messages, ``gnn.layer > 1``, 'uniform' sampling,
-bfloat16) are rejected by ``Engine`` with NotImplementedError.
+``train.remat``, 'uniform' sampling, bfloat16) are rejected by ``Engine``
+with NotImplementedError.  As in the JAX package, ``gnn.layer``,
+``sampling.layer`` and ``gnn.message_mode`` are not checked here: the
+model refuses a ``gnn.layer`` outside 1..8 and a ``message_mode`` other
+than 'scalar' or 'vector' (models/tgnn.py::check_supported), and
+``sampling.layer`` is schema only (the packer follows ``gnn.layer``).
 """
 from __future__ import annotations
 
