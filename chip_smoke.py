@@ -28,6 +28,14 @@ device, phase by phase, one JSON line per phase:
              the same with two stacked attention layers (gnn.layer: 2, the
              column-chunk protocol, the attention kernels launched twice a
              step and a chunk), and with vector messages at one layer
+  jodie_reference, dyrep_reference
+             the same for JODIE (gnn.arch identity: no kernel launched)
+             and DyRep (gnn.arch dyrep, the eager-mail memory with the
+             partner's embedding in each message: attention_fwd and
+             attention_bwd once a step); the eager state's computed mail
+             is held within 1e-4 (its Δt-encoding columns within 1e-3),
+             and DyRep's val pass also runs by column chunks from the
+             state after training
   wire       the native packer and the numpy packer in lockstep on the
              tgbl-wiki-shaped stream (TGN.yml widths): 4 train batches as
              dedup wires, one as a compact wire, then the first 2 and the
@@ -73,6 +81,20 @@ device, phase by phase, one JSON line per phase:
              configs/TGN-memory.yml with message_mode: vector at full
              width: 8 train steps, then the val pass (slot-unique) and its
              peak device memory
+  jodie_train, jodie_eval, dyrep_train, dyrep_eval
+             configs/JODIE.yml and configs/DyRep.yml at full width (D=100,
+             8 heads, K=10, batch 2000, msg 172; DyRep's mail 472 wide):
+             the full train split at their dropout, then the val pass,
+             whose gate must open (slot-unique)
+  dyrep_eval_unique_vs_chunked
+             DyRep's val pass again by column chunks from the same packer
+             snapshot and eager state: MRR within 1e-3, the packer states
+             equal, mem and mail within 1e-4, the rest of the state equal
+  decoders   the decoder heads (link and node predictor, ConvTransE at
+             D=200, 50 channels, kernel 3, 10,000 entities, 1,000
+             queries) on the GPU against the CPU from the same
+             parameters, in eval and train mode (dropout 0), and
+             ConvTransE's running statistics after two train calls
   eval_low_dedup
              configs/TGN.yml on a stream of tgbl-review's 352,637 nodes
              and 100 negatives a row, cut to 70,000 events, where the JAX
@@ -87,13 +109,16 @@ device, phase by phase, one JSON line per phase:
              all five must be > 0), on the memory path (memory_train +
              memory_eval; the dropout pair and the inference forward must
              be > 0), on the layer-2 path (layer2_train + layer2_eval; the
-             same three, exactly twice a step or a chunk) and on the vector
-             path (plain torch: none), each path's counts set to 0 just
-             before it; the kernel table sums them
+             same three, exactly twice a step or a chunk), on the vector
+             path (plain torch: none), on the JODIE path (none) and on the
+             DyRep path (the dropout pair exactly once a step, the
+             inference forward once an embed chunk), each path's counts
+             set to 0 just before it; the kernel table sums them
   profile    torch.profiler over 4 train steps and one val batch (by the
              slot-unique and by the column-chunk protocol) of a fresh
-             engine, frozen and memory, and at gnn.layer 2 (one val batch
-             by column chunks): wall time, host packing, device busy time
+             engine, frozen, memory, JODIE and DyRep, and at gnn.layer 2
+             (one val batch by column chunks): wall time, host packing,
+             device busy time
              and the kernels that take it; then each run again under
              torch.cuda's sync debug mode, which must see one
              synchronization only (the pass's one fetch of its metrics)
@@ -112,6 +137,7 @@ and prints no result.
 """
 from __future__ import annotations
 
+import copy
 import json
 import os
 import statistics
@@ -171,6 +197,9 @@ MEMORY_PATH_KERNELS = ("attention_fwd_drop", "attention_bwd_drop",
 # train steps of the vector-message path (its (R, Kp, H, D) tensors make a
 # step several times as slow as a scalar one)
 VECTOR_STEPS = 8
+# DyRep's stored mail ends with cos(w·Δt + b): at |Δt| up to ~10^3 one ulp
+# of the fp32 argument is 6e-5, so those columns get their own tolerance
+MAIL_TE_TOL = 1e-3
 
 
 def emit(obj) -> None:
@@ -385,11 +414,13 @@ def _tiny(pkg, num_neg=8):
                          num_neg=num_neg, seed=1)
 
 
-def _gpu_and_cpu(pkg, raw, protocol="slot_unique"):
+def _gpu_and_cpu(pkg, raw, protocol="slot_unique", chunked=False):
     """Train one epoch and run the val pass, then the test pass, of the
     tiny stream on the GPU and on the CPU from the same seed (so the same
     weights), the val pass by ``protocol``; returns {device: (per-step
-    losses, val MRR, engine, test MRR)}."""
+    losses, val MRR, engine, test MRR)}.  With ``chunked`` each device
+    first runs the val pass by column chunks from the state after
+    training and restores that state; its MRR ends the tuple."""
     data = _tiny(pkg)
     out = {}
     for dev in ("cuda", "cpu"):
@@ -404,11 +435,17 @@ def _gpu_and_cpu(pkg, raw, protocol="slot_unique"):
 
         eng._train_step = rec
         eng.train_epoch()
+        extra = ()
+        if chunked:
+            snap = _stream_state(eng)
+            extra = (eng._evaluate_chunked("val"),)
+            eng.packer.restore(snap[0])
+            eng.mem_state = snap[1]
         val = eng.evaluate("val")
         if eng.last_eval_trace["protocol"] != protocol:
             raise AssertionError(f"the reference val pass did not take the "
                                  f"{protocol} protocol")
-        out[dev] = (losses, val, eng, eng.evaluate("test"))
+        out[dev] = (losses, val, eng, eng.evaluate("test"), *extra)
     return out
 
 
@@ -420,7 +457,7 @@ def _host_times(eng):
 
 
 def _compare_runs(phase, out):
-    (lg, mg, eng, tg), (lc, mc, _, tc) = out["cuda"], out["cpu"]
+    (lg, mg, eng, tg), (lc, mc, _, tc) = out["cuda"][:4], out["cpu"][:4]
     loss_err = max(abs(a - b) for a, b in zip(lg, lc))
     res = dict(phase=phase, steps=len(lg), losses_gpu=lg,
                losses_cpu=lc, max_loss_diff=loss_err, mrr_gpu=mg,
@@ -451,27 +488,57 @@ def _with_gnn(raw, **gnn):
     return dict(raw, gnn=[dict(raw["gnn"][0], **gnn)])
 
 
+def _state_diff(torch, got, want, te_tol=MEM_TOL):
+    """Two memory states (``MemoryState`` or DyRep's ``EagerMemoryState``)
+    side by side: the largest difference of ``mem`` and, for the eager
+    state, of its computed ``mail`` (the Δt-encoding columns, the last D,
+    apart), the fields that are not equal among the others, and whether
+    all is within MEM_TOL (``te_tol`` for the Δt-encoding columns)."""
+    def err(a, b):
+        return float((a.cpu() - b.cpu()).abs().max()) if a.numel() else 0.0
+
+    res = dict(max_mem_diff=err(got.mem, want.mem), mem_tol=MEM_TOL)
+    ok = res["max_mem_diff"] <= MEM_TOL
+    if "mail" in want._fields:
+        D = want.mem.shape[1]
+        res.update(max_mail_diff=err(got.mail[..., :-D], want.mail[..., :-D]),
+                   max_mail_te_diff=err(got.mail[..., -D:],
+                                        want.mail[..., -D:]),
+                   mail_te_tol=te_tol)
+        ok = (ok and res["max_mail_diff"] <= MEM_TOL
+              and res["max_mail_te_diff"] <= te_tol)
+    res["unequal_state_fields"] = [
+        f for f in want._fields if f not in ("mem", "mail")
+        and not torch.equal(getattr(got, f).cpu(), getattr(want, f).cpu())]
+    return res, ok and not res["unequal_state_fields"]
+
+
 def phase_memory_reference(torch, pkg, phase="memory_reference",
-                           raw=MEMORY_RAW, protocol="slot_unique"):
+                           raw=MEMORY_RAW, protocol="slot_unique",
+                           chunked=False):
     """The reference phase with the mailbox memory: losses and MRRs as
-    there, and the final MemoryState (after the val and test passes)
-    equal: mem within MEM_TOL, last_update and the mail fields exactly.
+    there, and the final memory state (after the val and test passes)
+    equal: mem within MEM_TOL, DyRep's computed mail within MEM_TOL (its
+    Δt-encoding columns within MAIL_TE_TOL), the other fields exactly.
+    With ``chunked`` each device also runs the val pass by column chunks
+    from the state after training, first, and its MRR must agree too.
     Returns the GPU run's launches of each kernel and its steps."""
     from tgb_tgn_dgl_tpu_torch.ops import attention
     attention.reset_launch_counts()
-    out = _gpu_and_cpu(pkg, raw, protocol)
+    out = _gpu_and_cpu(pkg, raw, protocol, chunked)
     launches = dict(attention.launch_counts)   # the CPU run launches none
     res, ok = _compare_runs(phase, out)
     sg, sc = out["cuda"][2].mem_state, out["cpu"][2].mem_state
-    mem_err = float((sg.mem.cpu() - sc.mem).abs().max())
-    unequal = [f for f in sc._fields if f != "mem"
-               and not torch.equal(getattr(sg, f).cpu(), getattr(sc, f))]
-    res.update(max_mem_diff=mem_err, mem_tol=MEM_TOL,
-               unequal_state_fields=unequal,
-               mem_nonzero_rows=int((sc.mem.abs().sum(1) > 0).sum()),
+    diff, same = _state_diff(torch, sg, sc, MAIL_TE_TOL)
+    res.update(diff, mem_nonzero_rows=int((sc.mem.abs().sum(1) > 0).sum()),
                valid_mail=int(sc.mail_valid.sum()), launches_gpu=launches)
+    if chunked:
+        cg, cc = out["cuda"][4], out["cpu"][4]
+        res.update(chunked_mrr_gpu=cg, chunked_mrr_cpu=cc)
+        ok = ok and abs(cg - cc) <= MRR_TOL and abs(cg - out["cuda"][1]) \
+            <= MRR_TOL
     emit(res)
-    if not ok or mem_err > MEM_TOL or unequal or res["valid_mail"] == 0:
+    if not ok or not same or res["valid_mail"] == 0:
         raise AssertionError(f"{phase}: GPU and CPU memory engines disagree")
     return launches, res["steps"]
 
@@ -497,6 +564,38 @@ def phase_vector_reference(torch, pkg):
         _with_gnn(MEMORY_RAW, message_mode="vector"))
     if any(launches.values()):
         raise AssertionError(f"vector_reference launched {launches}")
+
+
+def _arch_raw(arch, **memory):
+    """MEMORY_RAW for ``arch`` with the RNN cell (JODIE.yml, DyRep.yml)."""
+    return _with_gnn(dict(MEMORY_RAW, memory=[dict(
+        MEMORY_RAW["memory"][0], memory_update="rnn", **memory)]),
+        arch=arch)
+
+
+def phase_jodie_reference(torch, pkg):
+    """JODIE (gnn.arch identity) on the tiny stream, GPU against CPU as in
+    memory_reference (slot-unique eval).  Its embedding is the time
+    projection of the memory, with no attention: no kernel launches."""
+    launches, _ = phase_memory_reference(torch, pkg, "jodie_reference",
+                                         _arch_raw("identity"))
+    if any(launches.values()):
+        raise AssertionError(f"jodie_reference launched {launches}")
+
+
+def phase_dyrep_reference(torch, pkg):
+    """DyRep (gnn.arch dyrep, each message holding the partner's
+    embedding) on the tiny stream, GPU against CPU as in memory_reference,
+    the eager state's mail included, and the val pass by column chunks
+    from the state after training too.  The dropout-0 pair runs once a
+    step, the inference forward in the eval passes."""
+    launches, steps = phase_memory_reference(
+        torch, pkg, "dyrep_reference",
+        _arch_raw("dyrep", use_dst_emb_in_msg=True), chunked=True)
+    pair = {k: launches[k] for k in ("attention_fwd", "attention_bwd")}
+    if pair != {k: steps for k in pair} or not launches[
+            "attention_fwd_infer"]:
+        raise AssertionError(f"dyrep_reference: {launches} in {steps} steps")
 
 
 def _fields_differ(torch, got, want):
@@ -788,15 +887,18 @@ def phase_memory_train(torch, pkg, data, cfg_path, phase="memory_train",
               **_train_times(stats, tr, rec, cfg.train.batch_size),
               mem_nonzero_rows=nonzero,
               valid_mail=int(st.mail_valid.sum()),
-              width=dict(D=cfg.gnn.dim_out, H=cfg.gnn.att_head,
-                         K=cfg.sampling.num_neighbors,
+              width=dict(arch=cfg.gnn.arch, D=cfg.gnn.dim_out,
+                         H=cfg.gnn.att_head, K=cfg.sampling.num_neighbors,
                          layers=cfg.gnn.layer,
                          message_mode=cfg.gnn.message_mode,
                          batch=cfg.train.batch_size, msg=data.msg_dim,
+                         dropout=[cfg.train.dropout, cfg.train.att_dropout],
                          memory_dim=eng.mem_cfg.memory_dim,
-                         time_dim=eng.mem_cfg.time_dim,
-                         gru_input=eng.mem_cfg.msg_dim,
-                         mailbox=eng.mem_cfg.mailbox_size,
+                         # the cell's input: the lazy message, or DyRep's
+                         # stored mail
+                         cell_input=getattr(eng.mem_cfg, "mail_dim", None)
+                         or eng.mem_cfg.msg_dim,
+                         mailbox=cfg.memory.mailbox_size,
                          updater=eng.mem_cfg.updater),
               peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30))
     if not math.isfinite(stats["loss"]):
@@ -886,13 +988,9 @@ def phase_eval_unique_vs_chunked(torch, eng, snap, unique, phase):
     ok = rec["protocol"] == "column_chunk" and abs(mrr - unique["mrr"]) \
         <= MRR_TOL and not unequal
     if after_unique is not None:
-        sc = eng.mem_state
-        res["max_mem_diff"] = float((after_unique.mem - sc.mem).abs().max())
-        res["unequal_state_fields"] = [
-            f for f in sc._fields if f != "mem"
-            and not torch.equal(getattr(after_unique, f), getattr(sc, f))]
-        ok = ok and res["max_mem_diff"] <= MEM_TOL \
-            and not res["unequal_state_fields"]
+        diff, same = _state_diff(torch, after_unique, eng.mem_state)
+        res.update(diff)
+        ok = ok and same
     emit(res)
     if not ok:
         raise AssertionError("the slot-unique and column-chunk val passes "
@@ -951,6 +1049,74 @@ def phase_eval_low_dedup(torch, pkg, cfg_path):
     if abs(mrr_u - mrr_c) > MRR_TOL or unequal:
         raise AssertionError("the slot-unique and column-chunk val passes "
                              "disagree")
+
+
+# ConvTransE at RE-GCN's width (embedding 200, 50 channels, kernel 3)
+DECODER_SHAPES = dict(D=200, channels=50, kernel=3, entities=10_000,
+                      queries=1_000, candidates=100)
+DECODER_TOL = 1e-4
+
+
+def phase_decoders(torch):
+    """The decoder heads (models/decoders.py, plain torch) on the GPU
+    against the CPU from the same parameters and inputs: the link
+    predictor with (B, D) and (B, M, D) destinations, the node predictor,
+    and ConvTransE's scores in eval mode and in two train calls at dropout
+    0, then its running statistics; all within DECODER_TOL abs+rel.  Then
+    the device time of each call on the GPU (``time_ms``; the train calls
+    go on moving the running statistics, after the comparison)."""
+    from tgb_tgn_dgl_tpu_torch.models import decoders
+    sh = DECODER_SHAPES
+    D, Q, M = sh["D"], sh["queries"], sh["candidates"]
+    g = torch.Generator().manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g)
+
+    link = decoders.LinkPredictor(D, generator=g)
+    node = decoders.NodePredictor(D, 20, generator=g)
+    conv = decoders.ConvTransE(D, sh["channels"], sh["kernel"], generator=g)
+    ent, sub, rel = randn(sh["entities"], D), randn(Q, D), randn(Q, D)
+    cand = randn(Q, M, D)
+    drop0 = dict(input_drop=0.0, hidden_drop=0.0, feature_drop=0.0)
+    calls = {
+        "link_BD": lambda m, x: m["link"](x["sub"], x["rel"]),
+        "link_BMD": lambda m, x: m["link"](x["sub"], x["cand"]),
+        "node": lambda m, x: m["node"](x["sub"]),
+        "conv_transe_eval": lambda m, x: m["conv"](
+            x["ent"], x["sub"], x["rel"], train=False),
+        "conv_transe_train_1": lambda m, x: m["conv"](
+            x["ent"], x["sub"], x["rel"], train=True, **drop0),
+        "conv_transe_train_2": lambda m, x: m["conv"](
+            x["ent"], x["rel"], x["sub"], train=True, **drop0)}
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        mods = {k: copy.deepcopy(v).to(dev) for k, v in
+                dict(link=link, node=node, conv=conv).items()}
+        xs = {k: v.to(dev) for k, v in
+              dict(ent=ent, sub=sub, rel=rel, cand=cand).items()}
+        with torch.no_grad():
+            outs = {name: call(mods, xs).cpu()
+                    for name, call in calls.items()}
+        runs[dev] = (outs, {n: b.cpu() for n, b in
+                            mods["conv"].named_buffers()}, mods, xs)
+    (og, bg, mods, xs), (oc, bc, _, _) = runs["cuda"], runs["cpu"]
+    errs = {n: _err(og[n], oc[n])[0] for n in calls}
+    errs.update({f"bn_{n}": _err(bg[n], bc[n])[0] for n in bc})
+    ok = all(bool(((og[n] - oc[n]).abs() <= DECODER_TOL
+                   + DECODER_TOL * oc[n].abs()).all()) for n in calls) \
+        and all(bool(((bg[n] - bc[n]).abs() <= DECODER_TOL
+                      + DECODER_TOL * bc[n].abs()).all()) for n in bc)
+    finite = all(bool(torch.isfinite(o).all()) for o in og.values())
+    moved = not torch.equal(bc["bn2.var"], torch.ones(D))
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    with torch.no_grad():
+        ms = {name: time_ms(torch, lambda c=call: c(mods, xs), flush)
+              for name, call in calls.items()}
+    emit(dict(phase="decoders", shapes=sh, max_abs_err=errs,
+              tol=DECODER_TOL, gpu_ms=ms))
+    if not (ok and finite and moved):
+        raise AssertionError(f"decoders: GPU and CPU disagree: {errs}")
 
 
 RAGGED_NEG = 24
@@ -1056,10 +1222,10 @@ def _sync_sites(torch, fn):
 
 def phase_profile(torch, pkg, data, cfg_path, path, protocol="slot_unique"):
     """Where the time goes: a traced run of 4 train steps and of the first
-    val batch on a fresh engine of ``path`` (frozen, memory or layer2), by
-    the default protocol, which must be ``protocol``, and, where that is
-    slot-unique, then by the column-chunk protocol (all its negative
-    chunks).  The kernel busy share is the summed kernel
+    val batch on a fresh engine of ``path`` (frozen, memory, layer2, jodie
+    or dyrep), by the default protocol, which must be ``protocol``, and,
+    where that is slot-unique, then by the column-chunk protocol (all its
+    negative chunks).  The kernel busy share is the summed kernel
     time over the wall time; one minus it is the device's idle share
     (copies run on their own engine).  A run that waits for the device
     more than once (its one metrics fetch) fails: the host would stall on
@@ -1155,12 +1321,18 @@ def main() -> int:
         phase_layer2_reference(torch, pkg)
         phase = "vector_reference"
         phase_vector_reference(torch, pkg)
+        phase = "jodie_reference"
+        phase_jodie_reference(torch, pkg)
+        phase = "dyrep_reference"
+        phase_dyrep_reference(torch, pkg)
         phase = "wire"
         data = synthetic("tgbl-wiki")
         cfgs = os.path.join(root, "tgb_tgn_dgl_tpu_torch", "configs")
         cfg_path = os.path.join(cfgs, "TGN.yml")
         mem_cfg_path = os.path.join(cfgs, "TGN-memory.yml")
         layer2_cfg_path = os.path.join(cfgs, "TGN-2layer.yml")
+        jodie_cfg_path = os.path.join(cfgs, "JODIE.yml")
+        dyrep_cfg_path = os.path.join(cfgs, "DyRep.yml")
         phase_wire(torch, data, cfg_path)
         phase = "layer2_wire"
         phase_layer2_wire(torch, data, layer2_cfg_path)
@@ -1200,14 +1372,35 @@ def main() -> int:
         phase_eval(torch, eng, phase)
         vector_counts = dict(attention.launch_counts)
         del eng
+        phase = "jodie_train"
+        attention.reset_launch_counts()
+        eng = phase_memory_train(torch, pkg, data, jodie_cfg_path, phase)
+        phase = "jodie_eval"
+        phase_eval(torch, eng, phase)
+        jodie_counts = dict(attention.launch_counts)
+        del eng
+        phase = "dyrep_train"
+        attention.reset_launch_counts()
+        eng = phase_memory_train(torch, pkg, data, dyrep_cfg_path, phase)
+        dyrep_steps = eng.last_epoch_trace["batches"]
+        snap = _stream_state(eng)
+        phase = "dyrep_eval"
+        dyrep = phase_eval(torch, eng, phase)
+        dyrep_counts = dict(attention.launch_counts)
+        phase = "dyrep_eval_unique_vs_chunked"
+        phase_eval_unique_vs_chunked(torch, eng, snap, dyrep, phase)
+        del eng, snap
         torch.cuda.empty_cache()
+        phase = "decoders"
+        phase_decoders(torch)
         phase = "eval_low_dedup"
         phase_eval_low_dedup(torch, pkg, cfg_path)
         phase = "pad_mask"
         phase_pad_mask(torch, pkg)
         phase = "counters"
         paths = dict(frozen=frozen_counts, memory=memory_counts,
-                     layer2=layer2_counts, vector=vector_counts)
+                     layer2=layer2_counts, vector=vector_counts,
+                     jodie=jodie_counts, dyrep=dyrep_counts)
         counts = {k: sum(p[k] for p in paths.values())
                   for k in attention.KERNELS}
         # two attention layers: each kernel twice a step, twice a chunk
@@ -1215,8 +1408,14 @@ def main() -> int:
                            attention_fwd_drop=2 * layer2_steps,
                            attention_bwd_drop=2 * layer2_steps,
                            attention_fwd_infer=2 * layer2["embed_chunks"])
+        # DyRep at att_dropout 0.1: the dropout pair once a step, the
+        # inference forward once an embed chunk of its val pass
+        dyrep_want = dict(attention_fwd=0, attention_bwd=0,
+                          attention_fwd_drop=dyrep_steps,
+                          attention_bwd_drop=dyrep_steps,
+                          attention_fwd_infer=dyrep["embed_chunks"])
         emit(dict(phase="counters", **paths, layer2_expected=layer2_want,
-                  launches=counts))
+                  dyrep_expected=dyrep_want, launches=counts))
         idle = [k for k, v in frozen_counts.items() if v == 0]
         idle += [f"{k} (memory path)" for k in MEMORY_PATH_KERNELS
                  if memory_counts[k] == 0]
@@ -1225,15 +1424,21 @@ def main() -> int:
         if idle:
             raise AssertionError(f"kernels never launched on the main path: "
                                  f"{idle}")
-        if layer2_counts != layer2_want or any(vector_counts.values()):
+        if (layer2_counts != layer2_want or dyrep_counts != dyrep_want
+                or any(vector_counts.values())
+                or any(jodie_counts.values())):
             raise AssertionError(
                 f"layer-2 path launches {layer2_counts}, expected "
-                f"{layer2_want}; vector path {vector_counts}")
+                f"{layer2_want}; DyRep path {dyrep_counts}, expected "
+                f"{dyrep_want}; vector path {vector_counts}; JODIE path "
+                f"{jodie_counts}")
         phase = "profile"
         phase_profile(torch, pkg, data, cfg_path, "frozen")
         phase_profile(torch, pkg, data, mem_cfg_path, "memory")
         phase_profile(torch, pkg, data, layer2_cfg_path, "layer2",
                       protocol="column_chunk")
+        phase_profile(torch, pkg, data, jodie_cfg_path, "jodie")
+        phase_profile(torch, pkg, data, dyrep_cfg_path, "dyrep")
     except Exception as e:            # report the phase, then fail
         traceback.print_exc()
         emit(dict(phase=phase, ok=False, error=f"{type(e).__name__}: {e}"))

@@ -433,11 +433,11 @@ def test_engine_needs_cuda_unless_asked_for_cpu():
 
 
 @pytest.mark.parametrize("section,knobs,name", [
-    ("gnn", dict(arch="identity"), "gnn.arch"),
+    ("sampling", dict(strategy="uniform"), "sampling.strategy"),
     ("train", dict(compute_dtype="bfloat16"), "compute_dtype"),
     ("train", dict(remat=True, **MEMORY), "train.remat")],
     # "memory": the mailbox memory runs, its remat knob does not
-    ids=["jodie", "bf16", "memory"])
+    ids=["uniform", "bf16", "memory"])
 def test_engine_refuses_unported_config(section, knobs, name):
     raw = dict(RAW, **{section: [dict(RAW[section][0], **knobs)]})
     with pytest.raises(NotImplementedError, match=name):

@@ -12,8 +12,18 @@ encoding's vector ``{"w", "b"}`` stays ``time.w``, ``time.b``).  Keys join with 
 "b_hh"}}}`` keeps its layout (the port's cells multiply from the right, as
 the JAX cells do): ``memory.time.w``, ``memory.cell.w_ih`` and so on.
 
-``memory_state_from_jax`` turns the JAX package's ``MemoryState`` into the
-port's, through numpy.
+JODIE's time projection ``{"jodie": {"w": (1, D), "b": (D,)}}`` is a
+linear's dict and becomes ``jodie.weight`` (D, 1), ``jodie.bias``, as the
+port holds it (``models/variants.TimeEmbedding``, an ``nn.Linear(1, D)``).
+DyRep's eager memory subtree ``{"memory": {"cell": {...}}}`` becomes
+``memory.cell.*``.  The decoders' leaves follow the same rules: ConvTransE's
+``conv_w`` (C, 2, ks) keeps its layout, ``fc`` is a linear and the batch
+norms' ``bnX.{scale,bias}`` are vectors; their running statistics are
+state, not parameters (``conv_transe_state_from_jax``).
+
+``memory_state_from_jax`` and ``eager_memory_state_from_jax`` turn the
+JAX package's ``MemoryState`` / ``EagerMemoryState`` into the port's,
+through numpy.
 """
 from __future__ import annotations
 
@@ -23,6 +33,7 @@ import numpy as np
 import torch
 
 from .models.memory import MemoryState
+from .models.variants import EagerMemoryState
 
 
 def _is_linear(node) -> bool:
@@ -56,14 +67,15 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
 def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict:
     """The port's state dict (or any name -> tensor map with the same
     names, e.g. gradients) -> nested dict of numpy arrays in the JAX
-    layout."""
+    layout.  A ``bias`` is a linear's ``b`` beside its ``weight``, and
+    keeps its name elsewhere (a batch norm's ``{"scale", "bias"}``)."""
     tree: Dict = {}
     for name, t in state.items():
         a = t.detach().cpu().numpy()
         *path, leaf = name.split(".")
         if leaf == "weight":
             leaf, a = "w", np.ascontiguousarray(a.T)
-        elif leaf == "bias":
+        elif leaf == "bias" and ".".join(path + ["weight"]) in state:
             leaf = "b"
         node = tree
         for k in path:
@@ -77,3 +89,20 @@ def memory_state_from_jax(state) -> MemoryState:
     tensors, field by field (both use float32, int32 and bool)."""
     return MemoryState(**{f: torch.from_numpy(np.array(getattr(state, f)))
                           for f in MemoryState._fields})
+
+
+def eager_memory_state_from_jax(state) -> EagerMemoryState:
+    """The JAX ``EagerMemoryState`` (DyRep) -> the port's, field by
+    field."""
+    return EagerMemoryState(**{
+        f: torch.from_numpy(np.array(getattr(state, f)))
+        for f in EagerMemoryState._fields})
+
+
+def conv_transe_state_from_jax(state) -> Dict[str, torch.Tensor]:
+    """The JAX ``ConvTransEState`` (three ``BNState``s) -> the running
+    statistics of the port's ``ConvTransE`` by buffer name
+    (``bn0.mean``, ``bn0.var``, …), to load with its parameters."""
+    return {f"{bn}.{stat}": torch.from_numpy(
+                np.array(getattr(getattr(state, bn), stat), np.float32))
+            for bn in ("bn0", "bn1", "bn2") for stat in ("mean", "var")}

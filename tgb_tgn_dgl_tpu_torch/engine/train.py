@@ -1,10 +1,20 @@
 """Training/eval engine on torch: the port's counterpart of
-tgb_tgn_dgl_tpu/engine/train.py, slimmed to the single-device TGN path,
-with the frozen all-ones memory (the reference-parity configuration,
-``train.frozen_memory: True``) or the mailbox memory with a GRU/RNN cell
-(``configs/TGN-memory.yml``, models/memory.py), scalar or vector
-messages, and one or more stacked attention layers
-(``configs/TGN-2layer.yml``).
+tgb_tgn_dgl_tpu/engine/train.py, slimmed to the single-device path of
+its three model families (``gnn.arch``, models/factory.py):
+
+  * TGN with the frozen all-ones memory (the reference-parity
+    configuration, ``train.frozen_memory: True``) or the mailbox memory
+    with a GRU/RNN cell (``configs/TGN-memory.yml``, models/memory.py),
+    scalar or vector messages, one or more stacked attention layers
+    (``configs/TGN-2layer.yml``);
+  * JODIE (``gnn.arch: identity``, ``configs/JODIE.yml``): the mailbox
+    memory with the time-projection embedding and no graph attention;
+  * DyRep (``gnn.arch: dyrep``, ``configs/DyRep.yml``): TGN's attention
+    and the eager-mail memory (models/variants.py), whose stored messages
+    are computed at the event's batch, from its embeddings.
+
+JODIE and DyRep always run with their memory, whatever
+``train.frozen_memory`` says.
 
 Pipeline per batch, as the JAX Engine runs it by default: the native
 packer (data/native_packer.py, csrc/packer.cpp) packs the batch one
@@ -50,14 +60,19 @@ whatever the dedup.  Protocol fidelity:
     engine/train.py:446-466).  A slot-unique eval batch applies the mail
     once, embeds, scores and commits with the batch's write plan
     (:754-878); a column-chunk eval chunk runs apply_mail → embed →
-    commit, and only the last chunk carries a write plan (:1261-1275).
+    commit, and only the last chunk carries a write plan (:1261-1275);
+  * DyRep's eager mail is built after ``backward()`` and before the Adam
+    step, from the detached step embedding and the pre-step time encoder
+    (JAX builds it from the step's parameters, :414-421), then committed;
+    at eval each slot-unique batch builds it from its full embedding
+    table and the whole (R2,) slot map (:847-865), each column chunk
+    from its own embedding (:1233-1252).
 
 Metrics accumulate in small tensors on the device; each epoch or eval
 pass fetches one of them.  Entry points run on CUDA unless the caller
 passes ``device="cpu"``; there is no silent fallback to the CPU.
 
-Not ported yet (NotImplementedError): JODIE/DyRep (``gnn.arch``, and
-with it slot-unique eval's eager-mail branch), ``train.remat``, 'uniform'
+Not ported yet (NotImplementedError): ``train.remat``, 'uniform'
 sampling, bfloat16 compute.
 """
 from __future__ import annotations
@@ -73,10 +88,13 @@ from ..data.dataset import TemporalData
 from ..data.dependency import dependency_aware_batch
 from ..data.native_packer import NativeStreamPacker
 from ..data.packer import PackerConfig
+from ..models.factory import arch_embed, arch_predict, init_arch
 from ..models.memory import (MemoryModelConfig, apply_mail, commit,
                              init_memory, init_memory_state)
-from ..models.tgnn import (TGNNConfig, bce_loss, init_tgnn, tgnn_embed,
-                           tgnn_forward)
+from ..models.tgnn import TGNNConfig, bce_loss
+from ..models.variants import (EagerMemoryConfig, dyrep_messages,
+                               eager_apply_mail, eager_commit,
+                               init_eager_memory, init_eager_memory_state)
 from ..ops.wire import (DedupWire, compact_wire, eval_lean_dedup, expand_any,
                         nb_bucket_of, wire_to_device)
 from ..utils.config import FrameworkConfig
@@ -114,9 +132,7 @@ def eval_neg_chunk_size(config, M: int, n_events: int) -> int:
 
 
 def _unsupported(config: FrameworkConfig) -> Optional[str]:
-    g, tr = config.gnn, config.train
-    if g.arch != "transformer_attention":
-        return f"gnn.arch={g.arch!r} (JODIE/DyRep)"
+    tr = config.train
     if tr.remat:
         return "train.remat=True"
     if config.sampling.strategy != "recent":
@@ -127,8 +143,9 @@ def _unsupported(config: FrameworkConfig) -> Optional[str]:
 
 
 class Engine:
-    """Single-device engine for the flagship TGNN, with the frozen
-    all-ones memory or the mailbox memory (``mem_state``)."""
+    """Single-device engine for TGN (the frozen all-ones memory or the
+    mailbox memory), JODIE and DyRep; ``mem_state`` holds the memory's
+    stream state (a ``MemoryState``, DyRep's ``EagerMemoryState``)."""
 
     def __init__(self, data: TemporalData, config: FrameworkConfig,
                  device=None):
@@ -140,7 +157,19 @@ class Engine:
             raise NotImplementedError(f"{missing} is not ported yet")
         tr, g = config.train, config.gnn
         drop = g.override_dropout
-        self.use_memory = config.memory.enabled and not tr.frozen_memory
+        # JODIE and DyRep are memory models by definition (tgb_tgn_dgl_tpu
+        # engine/train.py:216-230); TGN takes the mailbox memory unless
+        # the reference's frozen all-ones quirk is asked for
+        self.arch = g.arch
+        if self.arch in ("identity", "dyrep"):
+            if not config.memory.enabled:
+                raise ValueError(f"gnn.arch {self.arch!r} needs the memory "
+                                 f"(memory.type: 'node')")
+            self.use_memory = True
+        else:
+            self.use_memory = config.memory.enabled and not tr.frozen_memory
+        # DyRep's messages hold embeddings: the eager-mail memory
+        self.eager_memory = self.arch == "dyrep"
         self.model_cfg = TGNNConfig(
             edge_feat_dim=data.msg_dim,
             hidden_dim=g.dim_out,
@@ -154,7 +183,7 @@ class Engine:
             const_ones_memory=not self.use_memory,
         )
         init_gen = torch.Generator().manual_seed(tr.seed)
-        self.model = init_tgnn(self.model_cfg, init_gen)
+        self.model = init_arch(self.model_cfg, self.arch, init_gen)
         self.mem_cfg = self.mem_state = None
         if self.use_memory:
             m = config.memory
@@ -163,14 +192,26 @@ class Engine:
                     f"memory.dim_out ({m.dim_out}) must equal gnn.dim_out "
                     f"({g.dim_out}): the embedding reads memory rows as "
                     f"node features")
-            self.mem_cfg = MemoryModelConfig(
-                num_nodes=data.num_nodes, raw_msg_dim=data.msg_dim,
-                memory_dim=m.dim_out, time_dim=m.dim_time,
-                mailbox_size=m.mailbox_size, updater=m.memory_update,
-                combine=m.mail_combine)
             # drawn after the model's leaves (models/init.py)
-            self.model.memory = init_memory(self.mem_cfg, init_gen)
-            self.mem_state = init_memory_state(self.mem_cfg, self.device)
+            if self.eager_memory:
+                D = m.dim_out
+                # mail = cat(self, partner, raw, Δt-enc): the reference's
+                # IdentityMessage width (modules/msg_func.py:15)
+                self.mem_cfg = EagerMemoryConfig(
+                    num_nodes=data.num_nodes,
+                    mail_dim=2 * D + data.msg_dim + D, memory_dim=D,
+                    updater=m.memory_update, combine=m.mail_combine,
+                    use_src_emb=m.use_src_emb_in_msg,
+                    use_dst_emb=m.use_dst_emb_in_msg)
+                self.model.memory = init_eager_memory(self.mem_cfg, init_gen)
+            else:
+                self.mem_cfg = MemoryModelConfig(
+                    num_nodes=data.num_nodes, raw_msg_dim=data.msg_dim,
+                    memory_dim=m.dim_out, time_dim=m.dim_time,
+                    mailbox_size=m.mailbox_size, updater=m.memory_update,
+                    combine=m.mail_combine)
+                self.model.memory = init_memory(self.mem_cfg, init_gen)
+            self.mem_state = self._fresh_memory_state()
         self.model = self.model.to(self.device)
         # the native packer; its library builds here at first use and a
         # failed build raises (data/native_packer.py)
@@ -323,35 +364,68 @@ class Engine:
                        dict(eval_mode=True, insert=last, write_mail=last))
 
     # -------------------------------------------------------------- train
+    def _fresh_memory_state(self):
+        """The memory's zero state (``reset_memory``, reference
+        model_utils.py:273-288)."""
+        if self.eager_memory:
+            return init_eager_memory_state(
+                self.mem_cfg, self.config.memory.mailbox_size, self.device)
+        return init_memory_state(self.mem_cfg, self.device)
+
     def _apply_mail(self, pack):
+        if self.eager_memory:
+            return eager_apply_mail(self.model.memory, self.mem_cfg,
+                                    self.mem_state, pack.uniq_nid)
         return apply_mail(self.model.memory, self.mem_cfg, self.mem_state,
                           pack.uniq_nid, self.feats)
 
-    def _commit(self, pack, mem_rows, lu_rows) -> None:
-        self.mem_state = commit(
-            self.mem_cfg, self.mem_state, pack.uniq_nid, mem_rows.detach(),
-            lu_rows.detach(), pack.mw_node, pack.mw_slot, pack.mw_partner,
-            pack.mw_t, pack.mw_eid)
+    def _commit(self, pack, mem_rows, lu_rows, embed=None) -> None:
+        """Write the batch into the memory state, in place.  DyRep's mail
+        is built here from ``embed``, the batch's root-slot embeddings, and
+        the model's current time encoder: call it before the Adam step."""
+        mem_rows, lu_rows = mem_rows.detach(), lu_rows.detach()
+        if not self.eager_memory:
+            self.mem_state = commit(
+                self.mem_cfg, self.mem_state, pack.uniq_nid, mem_rows,
+                lu_rows, pack.mw_node, pack.mw_slot, pack.mw_partner,
+                pack.mw_t, pack.mw_eid)
+            return
+        mail = dyrep_messages(self.mem_cfg, embed.detach(), pack, self.feats,
+                              self.model.time, mem_rows, lu_rows)
+        self.mem_state = eager_commit(
+            self.mem_cfg, self.mem_state, pack.uniq_nid, mem_rows, lu_rows,
+            pack.mw_node, pack.mw_slot, mail, pack.mw_t, pack.mw_eid)
+
+    def _embed(self, pack, mem_rows, lu_rows, train: bool):
+        """Root-slot embeddings of a device pack by the model's arch: from
+        the batch's applied memory rows with the memory, else the frozen
+        ones."""
+        if self.use_memory:
+            return arch_embed(self.model, self.arch, self.model_cfg,
+                              mem_rows, lu_rows, self.feats, pack,
+                              train=train, generator=self.generator,
+                              local=True)
+        return arch_embed(self.model, self.arch, self.model_cfg, self.memory,
+                          None, self.feats, pack, train=train,
+                          generator=self.generator, local=False)
 
     def _train_step(self, pack, acc: torch.Tensor):
         """One Adam step on a device pack (tgb_tgn_dgl_tpu
-        engine/train.py:440-496); returns (loss, acc) with the running
+        engine/train.py:397-496); returns (loss, acc) with the running
         accumulator [Σ loss·n, Σ ap, Σ auc, batches] (:369-379)."""
         self.optimizer.zero_grad(set_to_none=True)
+        mem_rows = lu_rows = None
         if self.use_memory:
             mem_rows, lu_rows = self._apply_mail(pack)
-            pos, neg = tgnn_forward(self.model, self.model_cfg, mem_rows,
-                                    self.feats, pack, train=True,
-                                    generator=self.generator, local=True)
-        else:
-            pos, neg = tgnn_forward(self.model, self.model_cfg, self.memory,
-                                    self.feats, pack, train=True,
-                                    generator=self.generator)
+        embed = self._embed(pack, mem_rows, lu_rows, train=True)
+        pos, neg = arch_predict(self.model, embed, pack)
         loss = bce_loss(pos, neg, pack.ev_valid)
         loss.backward()
         if self.use_memory:
-            # after backward: the state's tensors are written in place
-            self._commit(pack, mem_rows, lu_rows)
+            # after backward, since the state's tensors are written in
+            # place; before the Adam step, since DyRep's mail reads the
+            # step's parameters
+            self._commit(pack, mem_rows, lu_rows, embed)
         self.optimizer.step()
         with torch.no_grad():
             valid = pack.ev_valid
@@ -376,7 +450,7 @@ class Engine:
         self.packer.reset_cache()
         if self.use_memory:
             # memory and cache reset together (pyg_epoch_utils.py:11-16)
-            self.mem_state = init_memory_state(self.mem_cfg, self.device)
+            self.mem_state = self._fresh_memory_state()
         acc = torch.zeros(4, dtype=torch.float32, device=self.device)
         total = nb = 0
         pack_s = disp_s = 0.0
@@ -423,9 +497,7 @@ class Engine:
         """Edge scoring into per-event rank counts (tgb_tgn_dgl_tpu
         engine/train.py:623-643).  ``neg_mask`` (B, Mc) marks the real
         negative columns in pad+mask mode, else None."""
-        pos, neg = self.model.pred(embed[pack.ev_src_slot.long()],
-                                   embed[pack.ev_pos_slot.long()],
-                                   embed[pack.ev_neg_slot.long()])
+        pos, neg = arch_predict(self.model, embed, pack)
         neg2 = neg if neg.dim() == 2 else neg[:, None]
         p = pos[:, None]
         gt = neg2 > p
@@ -434,15 +506,6 @@ class Engine:
             gt = gt & neg_mask
             ge = ge & neg_mask
         return opt + gt.sum(dim=1), pes + ge.sum(dim=1)
-
-    def _embed_eval(self, pack, mem_rows):
-        """Root-slot embeddings of an eval pack: from the batch's applied
-        memory rows with the mailbox memory, else the frozen ones."""
-        if self.use_memory:
-            return tgnn_embed(self.model, self.model_cfg, mem_rows,
-                              self.feats, pack, train=False, local=True)
-        return tgnn_embed(self.model, self.model_cfg, self.memory,
-                          self.feats, pack, train=False)
 
     # ------------------------------------------- slot-unique eval: the gate
     def _log_eval_gate(self, reason: str) -> None:
@@ -563,7 +626,8 @@ class Engine:
         it, and add the batch's mean metric to ``acc``.  With the memory,
         the mail is applied once on the batch's read set before the first
         embedding, and committed with the batch's write plan after
-        scoring."""
+        scoring (DyRep's mail from the whole table, through the full (R2,)
+        slot map: the first chunk's expansion holds only its own slots)."""
         R2 = wire.root_loc.shape[0]
         Rc = R2 // n_chunks
         emb = torch.empty((R2, self.model_cfg.hidden_dim),
@@ -579,7 +643,7 @@ class Engine:
                 pack0 = pack
                 if self.use_memory:
                     mem_rows, lu_rows = self._apply_mail(pack0)
-            emb[rows] = self._embed_eval(pack, mem_rows)
+            emb[rows] = self._embed(pack, mem_rows, lu_rows, train=False)
         h_src = emb[wire.ev_src_slot.long()]
         h_pos = emb[wire.ev_pos_slot.long()]
         neg_slot = wire.ev_neg_slot.long()                    # (B, Mp)
@@ -594,7 +658,8 @@ class Engine:
             pes = pes + ((neg >= p) & m).sum(dim=1)
         acc = self._finalize(acc, opt, pes, valid)
         if self.use_memory:
-            self._commit(pack0, mem_rows, lu_rows)
+            self._commit(pack0._replace(root_loc=wire.root_loc), mem_rows,
+                         lu_rows, emb)
         return acc
 
     # ------------------------------------------------ the eval pass itself
@@ -674,9 +739,9 @@ class Engine:
                 # committing on every chunk is idempotent; only the last
                 # chunk carries a write plan
                 mem_rows, lu_rows = self._apply_mail(pack)
-            embed = self._embed_eval(pack, mem_rows)
+            embed = self._embed(pack, mem_rows, lu_rows, train=False)
             if self.use_memory:
-                self._commit(pack, mem_rows, lu_rows)
+                self._commit(pack, mem_rows, lu_rows, embed)
             counts["opt"], counts["pes"] = self._score_counts(
                 embed, pack, counts["opt"], counts["pes"], mask_c)
             n["embed_chunks"] += 1

@@ -12,10 +12,14 @@ Random streams.  The JAX package derives one dropout key per consumer
 random number from one ``torch.Generator`` in a fixed order instead:
 
   * init: ``Engine`` seeds a CPU generator with ``train.seed`` and draws
-    the leaves in the order of ``models/tgnn.init_tgnn`` (``gat``,
-    ``pred``, then ``gat2`` … ``gat{L}``), then, with the mailbox memory,
-    the cell's ``w_ih``, ``w_hh``, ``b_ih``, ``b_hh``
-    (``models/memory.init_memory``);
+    the model's leaves (``models/factory.init_arch``): for TGN and DyRep
+    in the order of ``models/tgnn.init_tgnn`` (``gat``, ``pred``, then
+    ``gat2`` … ``gat{L}``), for JODIE ``jodie.weight`` (the time
+    projection; its bias is zero), then ``pred``'s ``src_fc``, ``dst_fc``
+    and ``out_fc``; then, with the memory, the cell's ``w_ih``, ``w_hh``,
+    ``b_ih``, ``b_hh`` (``models/memory.init_memory``, and for DyRep's
+    eager memory ``models/variants.init_eager_memory``, whose cell takes
+    the stored mail of width 2D + F + D);
   * dropout: ``Engine`` seeds a generator on its device with
     ``train.seed + 1``; each train step draws, layer by layer and in this
     order within a layer, the masks of the source features, the root

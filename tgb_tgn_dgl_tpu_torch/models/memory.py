@@ -80,16 +80,24 @@ class Memory(nn.Module):
         self.cell = cell
 
 
-def check_config(cfg: MemoryModelConfig) -> None:
-    if cfg.updater not in CELLS:
-        raise ValueError(f"unknown memory_update {cfg.updater!r}; expected "
+def check_cell(updater: str, combine: str) -> None:
+    """The cell and the mail combine of a memory, lazy or eager."""
+    if updater not in CELLS:
+        raise ValueError(f"unknown memory_update {updater!r}; expected "
                          f"one of {sorted(CELLS)}")
-    if cfg.combine not in COMBINES:
-        raise ValueError(f"unknown mail_combine {cfg.combine!r}; expected "
+    if combine not in COMBINES:
+        raise ValueError(f"unknown mail_combine {combine!r}; expected "
                          f"one of {list(COMBINES)}")
-    if cfg.mailbox_size < 1:
-        raise ValueError(f"mailbox_size must be >= 1, got "
-                         f"{cfg.mailbox_size}")
+
+
+def check_mailbox(mailbox_size: int) -> None:
+    if mailbox_size < 1:
+        raise ValueError(f"mailbox_size must be >= 1, got {mailbox_size}")
+
+
+def check_config(cfg: MemoryModelConfig) -> None:
+    check_cell(cfg.updater, cfg.combine)
+    check_mailbox(cfg.mailbox_size)
 
 
 def init_memory(cfg: MemoryModelConfig,

@@ -1,8 +1,9 @@
 """Config system: the TGL 4-section YAML schema, typed and validated.
 
 The port's copy of tgb_tgn_dgl_tpu/utils/config.py.  It keeps the schema
-fields (so the same ``configs/TGN.yml``, ``configs/TGN-memory.yml`` and
-``configs/TGN-2layer.yml`` parse in both packages) and the train knobs the port reads.  The JAX
+fields (so the same ``configs/TGN.yml``, ``configs/TGN-memory.yml``,
+``configs/TGN-2layer.yml``, ``configs/JODIE.yml`` and ``configs/DyRep.yml``
+parse in both packages) and the train knobs the port reads.  The JAX
 package's transport and dispatch knobs (``wire_compact``, ``wire_dedup``,
 the train-lean and blob wires, fused steps, device-cache mode,
 ``eval_slot_unique``, rng_impl, use_pallas) have no counterpart here: the
@@ -11,9 +12,10 @@ a batch needs it, and evaluates by the slot-unique protocol wherever its
 structural gate opens (engine/train.py); a config that sets one of those
 knobs is refused as an unknown key rather than ignored.
 
-Knobs the schema carries but the port does not run yet (JODIE/DyRep,
-``train.remat``, 'uniform' sampling, bfloat16) are rejected by ``Engine``
-with NotImplementedError.  As in the JAX package, ``gnn.layer``,
+Knobs the schema carries but the port does not run yet (``train.remat``,
+'uniform' sampling, bfloat16) are rejected by ``Engine`` with
+NotImplementedError; an unknown ``gnn.arch`` raises ValueError
+(models/factory.py).  As in the JAX package, ``gnn.layer``,
 ``sampling.layer`` and ``gnn.message_mode`` are not checked here: the
 model refuses a ``gnn.layer`` outside 1..8 and a ``message_mode`` other
 than 'scalar' or 'vector' (models/tgnn.py::check_supported), and
@@ -53,6 +55,13 @@ class MemoryConfig:
     mailbox_size: int = 1
     combine_node_feature: bool = True
     dim_out: int = 100
+    # DyRep message-field composition (reference
+    # modules/memory_module.py:266-267,387-408): use the batch EMBEDDING
+    # (instead of memory) for the self / partner field of the stored
+    # message.  Reference defaults: both False.  Applies to gnn.arch
+    # 'dyrep' (the eager-mail memory, models/variants.py).
+    use_src_emb_in_msg: bool = False
+    use_dst_emb_in_msg: bool = False
 
     @property
     def enabled(self) -> bool:
