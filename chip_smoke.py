@@ -105,6 +105,29 @@ device, phase by phase, one JSON line per phase:
   pad_mask   a tiny stream with ragged negatives (1..24 a row), pad_mask
              and hits@10: GPU against CPU on val and test by both
              protocols, and each GPU val pass waits for the device once
+  fit_reference
+             Engine.fit on the tiny stream with the memory at dropout 0
+             (attention_fwd/attention_bwd): 2 epochs with the val
+             snapshot, a checkpoint an epoch and early stopping, GPU
+             against CPU from the same weights (per-step losses, epoch
+             losses, val MRRs); then a GPU engine resumed from the epoch-1
+             checkpoint fits epoch 2: loss and val MRR equal to the
+             uninterrupted run's
+  fit        the port's CLI (tgb_tgn_dgl_tpu_torch/run_tgn.py, main) at
+             full width: configs/TGN-memory.yml on the tgbl-wiki-shaped
+             stream, --epochs 2 --checkpoint-every 1 --patience 5
+             --val-snapshot --run-test --profile; then --resume from its
+             epoch-1 checkpoint into a second and a third log directory
+             (epoch 2: loss and val MRR equal to the first run's, and the
+             two resumed runs equal), and
+             --resume from its epoch-2 checkpoint --epochs 2 --run-test
+             (no epoch trained; test MRR within 1e-6 of the first run's).
+             Each epoch's train seconds and edges/s, the val passes'
+             seconds, the checkpoint's bytes and save and load seconds,
+             the trace's bytes and whether it names the attention
+             kernels, the metrics.jsonl events; each run's launches
+             (the dropout pair 56 an epoch trained, attention_fwd_infer
+             once an embed chunk of its val and test passes)
   counters   launches of each kernel on the frozen path (train + eval;
              all five must be > 0), on the memory path (memory_train +
              memory_eval; the dropout pair and the inference forward must
@@ -112,8 +135,11 @@ device, phase by phase, one JSON line per phase:
              same three, exactly twice a step or a chunk), on the vector
              path (plain torch: none), on the JODIE path (none) and on the
              DyRep path (the dropout pair exactly once a step, the
-             inference forward once an embed chunk), each path's counts
-             set to 0 just before it; the kernel table sums them
+             inference forward once an embed chunk), on the fit path (the
+             fit phase's first CLI run: the dropout pair 56 times an
+             epoch, the inference forward once an embed chunk of its two
+             val passes and its test pass), each path's counts set to 0
+             just before it; the kernel table sums them
   profile    torch.profiler over 4 train steps and one val batch (by the
              slot-unique and by the column-chunk protocol) of a fresh
              engine, frozen, memory, JODIE and DyRep, and at gnn.layer 2
@@ -143,6 +169,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
@@ -1176,6 +1203,231 @@ def phase_pad_mask(torch, pkg):
                              f"more than once: {syncs}")
 
 
+# ------------------------------------------------- the training entry point
+FIT_EPOCHS = 2
+FIT_PATIENCE = 5
+RESUME_TEST_TOL = 1e-6        # same state and parameters: same ranks
+WIKI_TRAIN_STEPS = 56         # 110,232 train events in batches of 2000
+
+
+def phase_fit_reference(torch, pkg, tmp):
+    """``Engine.fit`` on the tiny stream with the memory at dropout 0 (so
+    attention_fwd and attention_bwd run), two epochs with the val
+    snapshot, a checkpoint an epoch and early stopping, on the GPU and on
+    the CPU from the same weights: per-step losses within LOSS_TOL, the
+    epoch losses (Σ loss·n) within LOSS_TOL relative, val MRRs within
+    MRR_TOL.  Then a GPU engine resumed from the epoch-1 checkpoint fits
+    one epoch: its epoch-2 loss and val MRR equal the uninterrupted GPU
+    run's (the train step adds with no atomics, and the checkpoint keeps
+    the packer's padded shapes)."""
+    from tgb_tgn_dgl_tpu_torch.engine.checkpoint import EarlyStopMonitor
+    from tgb_tgn_dgl_tpu_torch.ops import attention
+    data = _tiny(pkg)
+    raw = pkg.parse_config_dict(MEMORY_RAW)
+    runs = {}
+    attention.reset_launch_counts()
+    for dev in ("cuda", "cpu"):
+        eng = pkg.Engine(data, raw, device=dev)
+        steps = []
+        step = eng._train_step
+
+        def rec(pack, acc, step=step, steps=steps):
+            loss, acc = step(pack, acc)
+            steps.append(float(loss))
+            return loss, acc
+
+        eng._train_step = rec
+        ckpt_dir = os.path.join(tmp, f"fit_reference_{dev}")
+        hist = eng.fit(epochs=FIT_EPOCHS, log=lambda line: None,
+                       val_snapshot=True, checkpoint_dir=ckpt_dir,
+                       checkpoint_every=1,
+                       early_stop=EarlyStopMonitor(FIT_PATIENCE,
+                                                   save_dir=ckpt_dir))
+        runs[dev] = (hist, steps, ckpt_dir)
+    launches = dict(attention.launch_counts)
+    (hg, sg, ckpt_dir), (hc, sc, _) = runs["cuda"], runs["cpu"]
+    resumed = pkg.Engine(data, raw)
+    resumed.load_checkpoint(os.path.join(ckpt_dir, "ckpt_epoch0001.pt"))
+    hr = resumed.fit(epochs=1, log=lambda line: None, val_snapshot=True)
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    res = dict(phase="fit_reference", steps=len(sg),
+               max_step_loss_diff=max(abs(a - b) for a, b in zip(sg, sc)),
+               loss_gpu=hg["loss"], loss_cpu=hc["loss"],
+               max_loss_rel_diff=max(map(rel, hg["loss"], hc["loss"])),
+               val_gpu=hg["val"], val_cpu=hc["val"],
+               max_val_diff=max(abs(a - b) for a, b in zip(hg["val"],
+                                                          hc["val"])),
+               resumed_epoch=resumed._epoch, resumed_loss=hr["loss"],
+               resumed_val=hr["val"],
+               resumed_loss_rel_diff=rel(hr["loss"][0], hg["loss"][1]),
+               resumed_val_diff=abs(hr["val"][0] - hg["val"][1]),
+               loss_tol=LOSS_TOL, mrr_tol=MRR_TOL, launches_gpu=launches)
+    emit(res)
+    ok = (len(sg) == len(sc) == FIT_EPOCHS * 6
+          and res["max_step_loss_diff"] <= LOSS_TOL
+          and res["max_loss_rel_diff"] <= LOSS_TOL
+          and res["max_val_diff"] <= MRR_TOL and resumed._epoch == 2
+          and res["resumed_loss_rel_diff"] == 0.0
+          and res["resumed_val_diff"] == 0.0
+          and launches["attention_fwd"] > 0 and launches["attention_bwd"] > 0)
+    if not ok:
+        raise AssertionError("fit_reference: GPU and CPU fits, or the "
+                             "resumed fit, disagree")
+
+
+def _metrics_events(log_dir):
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_fit(torch, root, tmp):
+    """The port's CLI (``run_tgn.main``) at full width: TGN-memory.yml on
+    the tgbl-wiki-shaped synthetic stream, 2 epochs with a checkpoint an
+    epoch, patience 5, the val snapshot, the test pass and the profiled
+    first epoch; then resumed from its epoch-1 checkpoint into a second
+    log directory (1 epoch), the same again into a third (two resumed
+    runs, the card's run-to-run spread), and from its epoch-2 checkpoint
+    with
+    ``--epochs 2 --run-test`` (no epoch, only the test pass).  Each run's
+    launches are counted from 0, with every eval pass's embed chunks.
+    Returns the first run's launches and expected launches."""
+    from tgb_tgn_dgl_tpu_torch.engine.train import Engine
+    from tgb_tgn_dgl_tpu_torch.ops import attention
+    from tgb_tgn_dgl_tpu_torch.run_tgn import main
+    from tgb_tgn_dgl_tpu_torch.utils.metrics import TRACE_FILE
+    cfg = os.path.join(root, "tgb_tgn_dgl_tpu_torch", "configs",
+                       "TGN-memory.yml")
+    d1, d2, d3 = (os.path.join(tmp, f"fit_run{i}") for i in (1, 2, 3))
+    base = ["--data", "tgbl-wiki", "--synthetic", "--config", cfg,
+            "--epochs", str(FIT_EPOCHS), "--checkpoint-every", "1",
+            "--patience", str(FIT_PATIENCE), "--val-snapshot"]
+    test_only = base[:5] + ["--epochs", str(FIT_EPOCHS), "--resume",
+                            os.path.join(d1, "ckpt_epoch0002.pt"),
+                            "--run-test"]
+    evaluate = Engine.evaluate
+    passes = []
+
+    def recorded(self, split="val"):
+        out = evaluate(self, split)
+        passes.append(dict(split=split, **_eval_record(self.last_eval_trace)))
+        return out
+
+    runs = {}
+    Engine.evaluate = recorded
+    try:
+        for name, argv in (
+                ("first", base + ["--log-dir", d1, "--run-test",
+                                  "--profile"]),
+                ("resumed", base + ["--log-dir", d2, "--resume",
+                                    os.path.join(d1, "ckpt_epoch0001.pt")]),
+                ("resumed_again", base + ["--log-dir", d3, "--resume",
+                                          os.path.join(d1,
+                                                       "ckpt_epoch0001.pt")]),
+                ("test_only", test_only)):
+            del passes[:]
+            attention.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = main(argv)
+            torch.cuda.synchronize()
+            trained = sum(len(h["loss"]) for h in out["histories"])
+            steps = out["engine"].last_epoch_trace.get("batches", 0)
+            runs[name] = dict(
+                seconds=time.perf_counter() - t0, epochs_trained=trained,
+                epoch=out["engine"]._epoch, test=out["test"],
+                load_s=out["load_s"],
+                launches=dict(attention.launch_counts),
+                expected=dict(attention_fwd=0, attention_bwd=0,
+                              attention_fwd_drop=steps * trained,
+                              attention_fwd_infer=sum(
+                                  p["embed_chunks"] for p in passes),
+                              attention_bwd_drop=steps * trained),
+                steps_per_epoch=steps, eval_passes=list(passes))
+            del out
+    finally:
+        Engine.evaluate = evaluate
+    first, resumed, test_only = (runs[k] for k in ("first", "resumed",
+                                                   "test_only"))
+    ev1, ev2 = _metrics_events(d1), _metrics_events(d2)
+    epochs = [dict(epoch=e["epoch"], train_s=e["seconds"],
+                   edges_per_s=e["events_per_s"], loss=e["loss"])
+              for e in ev1 if e["event"] == "train_epoch"]
+    vals = [dict(epoch=e["epoch"], mrr=e["value"], seconds=e["seconds"])
+            for e in ev1 if e["event"] == "val"]
+    ckpts = [dict(epoch=e["epoch"], bytes=e["bytes"], save_s=e["seconds"])
+             for e in ev1 if e["event"] == "checkpoint"]
+    loss2 = [e["loss"] for e in ev2 if e["event"] == "train_epoch"]
+    val2 = [e["value"] for e in ev2 if e["event"] == "val"]
+    ev3 = _metrics_events(d3)
+    loss3 = [e["loss"] for e in ev3 if e["event"] == "train_epoch"]
+    val3 = [e["value"] for e in ev3 if e["event"] == "val"]
+    trace = os.path.join(d1, "profile", TRACE_FILE)
+    with open(trace) as f:
+        text = f.read()
+    names = {k: k in text for k in ("attention_fwd_kernel",
+                                    "attention_bwd_kernel")}
+    res = dict(phase="fit", config="TGN-memory.yml", epochs=epochs,
+               val=vals, checkpoints=ckpts,
+               load_s=[resumed["load_s"], test_only["load_s"]],
+               test_mrr=first["test"], trace_bytes=os.path.getsize(trace),
+               trace_names_kernels=names,
+               resumed=dict(epoch=resumed["epoch"], loss=loss2, val=val2),
+               resumed_loss_rel_diff=abs(loss2[0] - epochs[1]["loss"])
+               / abs(epochs[1]["loss"]) if loss2 else None,
+               resumed_val_diff=abs(val2[0] - vals[1]["mrr"])
+               if val2 else None,
+               # the same resume twice: the card's run-to-run spread
+               resumed_again=dict(loss=loss3, val=val3),
+               resume_spread_loss_rel=abs(loss3[0] - loss2[0])
+               / abs(loss2[0]) if loss2 and loss3 else None,
+               resume_spread_val=abs(val3[0] - val2[0])
+               if val2 and val3 else None,
+               test_only=dict(epochs_trained=test_only["epochs_trained"],
+                              test_mrr=test_only["test"],
+                              test_diff=abs(test_only["test"]
+                                            - first["test"]),
+                              tol=RESUME_TEST_TOL),
+               metrics_events={k: sum(e["event"] == k for e in ev1)
+                               for k in ("train_epoch", "val",
+                                         "checkpoint")},
+               **{f"{k}_run": {f: runs[k][f] for f in (
+                   "seconds", "epochs_trained", "steps_per_epoch",
+                   "launches", "expected", "eval_passes")}
+                  for k in runs})
+    emit(res)
+    bad = []
+    if not (len(epochs) == FIT_EPOCHS and len(vals) == FIT_EPOCHS):
+        bad.append(f"metrics.jsonl events {res['metrics_events']}")
+    if len(ckpts) != FIT_EPOCHS or not all(names.values()):
+        bad.append(f"checkpoints {ckpts}, kernels named in trace {names}")
+    if not (resumed["epoch"] == FIT_EPOCHS and len(loss2) == 1
+            and res["resumed_loss_rel_diff"] == 0.0
+            and res["resumed_val_diff"] == 0.0
+            and res["resume_spread_loss_rel"] == 0.0
+            and res["resume_spread_val"] == 0.0):
+        # no atomics in the train step and the padded shapes kept in the
+        # checkpoint: a resumed epoch is bit-equal on the card
+        bad.append("the resumed epoch 2 differs from the uninterrupted "
+                   "one, or two resumed runs differ")
+    if test_only["epochs_trained"] != 0 or \
+            res["test_only"]["test_diff"] > RESUME_TEST_TOL:
+        bad.append("the resume-only run trained or tested otherwise")
+    if not 0.0 < first["test"] <= 1.0:
+        bad.append(f"test MRR {first['test']}")
+    for k, r in runs.items():
+        if r["launches"] != r["expected"] or (
+                r["epochs_trained"] and r["steps_per_epoch"]
+                != WIKI_TRAIN_STEPS):
+            bad.append(f"{k} run launches {r['launches']}, expected "
+                       f"{r['expected']}")
+    if bad:
+        raise AssertionError("fit: " + "; ".join(bad))
+    return first["launches"], first["expected"]
+
+
 def _profiled(torch, fn):
     """Run ``fn`` under torch.profiler; return (wall seconds, kernel
     seconds, host-to-device copy seconds, top kernels).  Only the trace's
@@ -1397,10 +1649,16 @@ def main() -> int:
         phase_eval_low_dedup(torch, pkg, cfg_path)
         phase = "pad_mask"
         phase_pad_mask(torch, pkg)
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            phase = "fit_reference"
+            phase_fit_reference(torch, pkg, tmp)
+            phase = "fit"
+            fit_counts, fit_want = phase_fit(torch, root, tmp)
         phase = "counters"
         paths = dict(frozen=frozen_counts, memory=memory_counts,
                      layer2=layer2_counts, vector=vector_counts,
-                     jodie=jodie_counts, dyrep=dyrep_counts)
+                     jodie=jodie_counts, dyrep=dyrep_counts, fit=fit_counts)
         counts = {k: sum(p[k] for p in paths.values())
                   for k in attention.KERNELS}
         # two attention layers: each kernel twice a step, twice a chunk
@@ -1415,7 +1673,8 @@ def main() -> int:
                           attention_bwd_drop=dyrep_steps,
                           attention_fwd_infer=dyrep["embed_chunks"])
         emit(dict(phase="counters", **paths, layer2_expected=layer2_want,
-                  dyrep_expected=dyrep_want, launches=counts))
+                  dyrep_expected=dyrep_want, fit_expected=fit_want,
+                  launches=counts))
         idle = [k for k, v in frozen_counts.items() if v == 0]
         idle += [f"{k} (memory path)" for k in MEMORY_PATH_KERNELS
                  if memory_counts[k] == 0]
@@ -1425,12 +1684,14 @@ def main() -> int:
             raise AssertionError(f"kernels never launched on the main path: "
                                  f"{idle}")
         if (layer2_counts != layer2_want or dyrep_counts != dyrep_want
+                or fit_counts != fit_want
                 or any(vector_counts.values())
                 or any(jodie_counts.values())):
             raise AssertionError(
                 f"layer-2 path launches {layer2_counts}, expected "
                 f"{layer2_want}; DyRep path {dyrep_counts}, expected "
-                f"{dyrep_want}; vector path {vector_counts}; JODIE path "
+                f"{dyrep_want}; fit path {fit_counts}, expected "
+                f"{fit_want}; vector path {vector_counts}; JODIE path "
                 f"{jodie_counts}")
         phase = "profile"
         phase_profile(torch, pkg, data, cfg_path, "frozen")

@@ -11,7 +11,9 @@ data/native_packer.py) on the CPU, exactly:
     ``NativeStreamPacker`` raise with the compiler's words.
 
 Cases: train batches, eval batches with 2-D negatives, a mailbox ring of
-S = 2, ``max_intra_block=None`` and a cap, reset and snapshot/restore."""
+S = 2, ``max_intra_block=None`` and a cap, reset and snapshot/restore,
+and the ``snapshot`` a checkpoint reads against the JAX
+NativeStreamPacker's state views (``cache_nbr`` … ``mail_ptr``)."""
 import numpy as np
 import pytest
 
@@ -158,6 +160,42 @@ def test_reset_snapshot_restore(built):
     mine.insert(src, dst, t)
     ref.insert(src, dst, t)
     _assert_same_state(mine, ref, "after insert")
+
+
+@pytest.mark.parametrize("S", [1, 2])
+def test_state_views_equal_jax_native_packer(built, S):
+    """After the same inserts and packs, each field of ``snapshot()``
+    equals the JAX NativeStreamPacker's state view in dtype and value;
+    ``restore`` of the JAX views into a reset packer gives back the same
+    state, and both packers then pack the same wires."""
+    data, kw = _stream(S=S)
+    mine = NativeStreamPacker(data.num_nodes, PackerConfig(**kw))
+    ref = JaxNativePacker(data.num_nodes, JaxPackerConfig(**kw))
+    jobs = list(_batches(data, kw["batch_size"], eval_every=2))
+    for args, akw in jobs[:3]:
+        mine.pack_wire(*args, **akw)
+        ref.pack_wire(*args, **akw)
+    src, dst, t = data.src[:20], data.dst[:20], data.t[:20]
+    mine.insert(src, dst, t)
+    ref.insert(src, dst, t)
+    for name, a in zip(STATE, mine.snapshot()):
+        b = getattr(ref, name)
+        if name == "cur_e_id":
+            assert a == b and a > 0
+            continue
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    nbr, _, _, clock, _, _ = mine.snapshot()
+    assert (clock > 0).any() and (nbr >= 0).any()
+    views = tuple(getattr(ref, name) for name in STATE)
+    mine.reset_cache()
+    mine.restore(views)
+    _assert_same_state(mine, ref, "after restore")
+    for i, (args, akw) in enumerate(jobs[3:]):
+        (w, p), (rw, rp) = (mine.pack_wire(*args, **akw),
+                            ref.pack_wire(*args, **akw))
+        assert p == rp
+        _assert_same_wire(w, rw, f"batch {i} after restore")
 
 
 @pytest.mark.parametrize("eval_every", [0, 2], ids=["train", "eval_2d"])

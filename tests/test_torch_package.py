@@ -49,7 +49,10 @@ def test_cuda_source_exports_every_wrapped_entry_point():
 
 
 def test_import_builds_nothing():
-    code = ("import tgb_tgn_dgl_tpu_torch.engine.train, chip_smoke; "
+    code = ("import tgb_tgn_dgl_tpu_torch.engine.train, chip_smoke, "
+            "tgb_tgn_dgl_tpu_torch.run_tgn, "
+            "tgb_tgn_dgl_tpu_torch.engine.checkpoint, "
+            "tgb_tgn_dgl_tpu_torch.utils.metrics; "
             "from tgb_tgn_dgl_tpu_torch.ops import _build; "
             "print(len(_build._loaded))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

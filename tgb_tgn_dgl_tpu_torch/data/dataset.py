@@ -1,7 +1,8 @@
 """Temporal event-stream datasets: the port's copy of
 tgb_tgn_dgl_tpu/data/dataset.py (``TemporalData``, ``load_npz``,
-``chronological_masks`` and ``synthetic``; the TGB/TGL directory readers
-stay with the JAX package for now).
+``chronological_masks``, the on-disk readers ``load_tgb`` (our npz or the
+tgb package's processed directory) and ``load_tgl_data`` (the TGL
+layout), and ``synthetic``).
 
 Capability parity with the reference's L0/L1 data substrate: the TGB
 ``PyGLinkPropPredDataset`` + chronological mask split + fixed eval
@@ -136,6 +137,166 @@ def chronological_masks(num_edges: int, val_ratio=0.15, test_ratio=0.15):
     val[n_train:n_train + n_val] = True
     test[n_train + n_val:] = True
     return train, val, test
+
+
+def load_tgb(name: str, root: str = "datasets") -> TemporalData:
+    """Load a TGB dataset from its on-disk layout (no ``tgb`` package, no
+    network).  Accepts either our canonical npz (``<root>/<name>.npz`` or
+    ``<root>/<dir>/data.npz``) or the TGB package's processed numpy files
+    under ``<root>/<name with '-'→'_'>/``.
+    """
+    dirname = name.replace("-", "_")
+    candidates = [
+        os.path.join(root, f"{name}.npz"),
+        os.path.join(root, dirname, "data.npz"),
+        os.path.join(root, name, "data.npz"),
+    ]
+    for c in candidates:
+        if os.path.exists(c):
+            return load_npz(c, name=name)
+
+    # TGB processed layout: ml_<name>.npy-style arrays saved by the tgb pkg.
+    tgb_dir = os.path.join(root, dirname)
+    if os.path.isdir(tgb_dir):
+        data = _load_tgb_processed(name, tgb_dir)
+        if data is not None:
+            return data
+    raise FileNotFoundError(
+        f"No dataset found for '{name}' under '{root}'. Provide "
+        f"'{name}.npz' (src/dst/t/msg/*_mask[/val_ns/test_ns]) or the TGB "
+        f"processed directory, or use synthetic(name) for a synthetic "
+        f"stream with matching statistics."
+    )
+
+
+def _load_tgb_processed(name: str, d: str) -> Optional[TemporalData]:
+    """Reader for the tgb package's cached on-disk outputs (two known
+    layouts; fixture-tested in tests/test_torch_ingest.py against the JAX
+    package's reader).  The ROBUST path for real datasets is the
+    repository's tools/convert_tgb.py (runs where the tgb
+    package exists and emits our canonical npz with the exact arrays the
+    reference assembles, utils.py:25-67, including the pre-generated
+    negative sets this csv path cannot recover):
+
+      1. TGAT/"ml_" layout (tgb's processed cache): ``ml_<name>.csv``
+         with columns (,u,i,ts[,label,idx]) + ``ml_<name>.npy`` edge
+         features (row 0 is a padding row — features are 1-indexed by
+         ``idx``);
+      2. edgelist csv (``*edgelist*.csv``) with named columns
+         (timestamp|ts|time, src|source|u, dst|target|i|v,
+         w*/feat* feature columns).
+    """
+    import csv as _csv
+
+    files = sorted(os.listdir(d))
+    # --- layout 1: ml_<name>.csv + ml_<name>.npy ----------------------
+    ml_csv = [fn for fn in files
+              if fn.startswith("ml_") and fn.endswith(".csv")]
+    if ml_csv:
+        fn = ml_csv[0]
+        ss, ds, ts, idxs = [], [], [], []
+        with open(os.path.join(d, fn)) as f:
+            reader = _csv.DictReader(f)
+            for row in reader:
+                ss.append(int(float(row["u"])))
+                ds.append(int(float(row["i"])))
+                ts.append(float(row["ts"]))
+                idxs.append(int(float(row.get("idx") or 0)))
+        src = np.asarray(ss, np.int64)
+        dst = np.asarray(ds, np.int64)
+        t = np.asarray(ts, np.float32)
+        feat_path = os.path.join(d, fn[:-4] + ".npy")
+        table = np.load(feat_path) if os.path.exists(feat_path) else None
+        idx = np.asarray(idxs, np.int64)
+        if table is not None and not idx.any():
+            # no idx column: features align row-for-row (1-indexed when
+            # the table carries the padding row 0, else 0-indexed)
+            idx = (np.arange(1, len(src) + 1)
+                   if len(table) == len(src) + 1
+                   else np.arange(len(src)))
+        if (table is not None and len(idx) == len(src)
+                and idx.min(initial=0) >= 0
+                and idx.max(initial=0) < len(table)):
+            msg = table[idx].astype(np.float32)
+        else:
+            if table is not None:
+                import warnings
+                warnings.warn(
+                    f"{feat_path}: idx column out of range for the "
+                    f"feature table; falling back to ones")
+            msg = np.ones((len(src), 1), np.float32)
+        if msg.ndim == 1:
+            msg = msg[:, None]
+        order = np.argsort(t, kind="stable")
+        src, dst, t, msg = src[order], dst[order], t[order], msg[order]
+        tr, va, te = chronological_masks(len(t))
+        return TemporalData(name=name, src=src.astype(np.int32),
+                            dst=dst.astype(np.int32), t=t, msg=msg,
+                            train_mask=tr, val_mask=va, test_mask=te)
+
+    # --- layout 2: *edgelist*.csv with named columns ------------------
+    for fn in files:
+        if fn.endswith(".csv") and "edgelist" in fn:
+            ts, ss, ds, ws = [], [], [], []
+            with open(os.path.join(d, fn)) as f:
+                reader = _csv.DictReader(f)
+                cols = reader.fieldnames or []
+                for row in reader:
+                    ts.append(float(row.get("timestamp") or row.get("ts") or row.get("time")))
+                    ss.append(int(float(row.get("src") or row.get("source") or row.get("u"))))
+                    ds.append(int(float(row.get("dst") or row.get("target") or row.get("i") or row.get("v"))))
+                    feat_cols = [c for c in cols if c.startswith("w") or c.startswith("feat")]
+                    ws.append([float(row[c]) for c in feat_cols] or [1.0])
+            src = np.asarray(ss, np.int64)
+            dst = np.asarray(ds, np.int64)
+            # TGB maps dst into a disjoint id range; keep raw ids, remap dense.
+            all_ids = np.concatenate([src, dst])
+            uniq, inv = np.unique(all_ids, return_inverse=True)
+            src = inv[: len(src)].astype(np.int32)
+            dst = inv[len(src):].astype(np.int32)
+            t = np.asarray(ts, np.float32)
+            order = np.argsort(t, kind="stable")
+            src, dst, t = src[order], dst[order], t[order]
+            msg = np.asarray(ws, np.float32)[order]
+            tr, va, te = chronological_masks(len(t))
+            return TemporalData(name=name, src=src, dst=dst, t=t, msg=msg,
+                                train_mask=tr, val_mask=va, test_mask=te)
+    return None
+
+
+def load_tgl_data(name: str, root: str = "DATA") -> "TemporalData":
+    """Load a TGL-format dataset directory — the reference's legacy
+    ``getData`` path (reference utils.py:71-97): ``<root>/<name>/`` with
+    ``edges.npz`` (our npz) or ``edges.csv`` (src,dst,time[,...]).  The
+    t-CSR ``ext_full.npz`` of that layout feeds the 'uniform' sampler,
+    which the port has not ported, so it is not read here."""
+    d = os.path.join(root, name)
+    npz = os.path.join(d, "edges.npz")
+    if os.path.exists(npz):
+        data = load_npz(npz, name=name)
+    else:
+        csv_path = os.path.join(d, "edges.csv")
+        if not os.path.exists(csv_path):
+            raise FileNotFoundError(
+                f"no edges.npz/edges.csv under {d} (TGL layout)")
+        import csv as _csv
+
+        ss, ds, ts = [], [], []
+        with open(csv_path) as f:
+            for row in _csv.DictReader(f):
+                ss.append(int(float(row.get("src") or row.get("u"))))
+                ds.append(int(float(row.get("dst") or row.get("i")
+                                    or row.get("v"))))
+                ts.append(float(row.get("time") or row.get("ts")
+                                or row.get("timestamp")))
+        src = np.asarray(ss, np.int32)
+        dst = np.asarray(ds, np.int32)
+        t = np.asarray(ts, np.float32)
+        tr, va, te = chronological_masks(len(t))
+        data = TemporalData(name=name, src=src, dst=dst, t=t,
+                            msg=np.ones((len(t), 1), np.float32),
+                            train_mask=tr, val_mask=va, test_mask=te)
+    return data
 
 
 def synthetic(

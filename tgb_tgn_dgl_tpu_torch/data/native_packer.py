@@ -2,7 +2,9 @@
 counterpart of tgb_tgn_dgl_tpu/data/native_packer.py).
 
 The same constructor and state API as data/packer.py::StreamPacker
-(``pack``/``insert``/``reset_cache``/``snapshot``/``restore``), with the
+(``pack``/``insert``/``reset_cache``/``snapshot``/``restore``, which a
+checkpoint reads and writes, with the sticky shape buckets'
+``bucket_state``/``load_bucket_state``), with the
 host loops in C++, plus the wire emitters the Engine ships to the device
 (ops/wire.py): ``pack_wire`` (with the same-block root slots of the
 in-edges at ``layers > 1``), ``pack_wire_dedup`` and the one-deep
@@ -157,6 +159,17 @@ class NativeStreamPacker:
     @property
     def cur_e_id(self):
         return self._get_state()[4]
+
+    def bucket_state(self) -> dict:
+        """A copy of the sticky shape buckets, {(M, eval_mode): {name:
+        size}}: the padded sizes the next packs start from.  A checkpoint
+        keeps them, so that a resumed run pads its tensors as the run it
+        continues does (on the GPU a GEMM's summation order follows its
+        shape)."""
+        return {k: dict(v) for k, v in self._sticky.items()}
+
+    def load_bucket_state(self, buckets) -> None:
+        self._sticky = {tuple(k): dict(v) for k, v in buckets.items()}
 
     def snapshot(self):
         """(cache_nbr, cache_eid, cache_t, clock, cur_e_id, mail_ptr), as

@@ -72,12 +72,21 @@ Metrics accumulate in small tensors on the device; each epoch or eval
 pass fetches one of them.  Entry points run on CUDA unless the caller
 passes ``device="cpu"``; there is no silent fallback to the CPU.
 
+``fit`` is the epoch loop of tgb_tgn_dgl_tpu engine/train.py:2010-2081
+(a val pass every epoch, jsonl metrics, checkpoints every N epochs, early
+stopping that restores the best parameters, and the ``val_snapshot``
+protection of training from the streaming eval); ``save_checkpoint`` /
+``load_checkpoint`` hold the full state a run resumes from exactly
+(:2109-2187, engine/checkpoint.py), and the cursors ``_epoch`` and
+``_step`` count the epochs and batches trained.
+
 Not ported yet (NotImplementedError): ``train.remat``, 'uniform'
 sampling, bfloat16 compute.
 """
 from __future__ import annotations
 
 import itertools
+import os
 import time
 from typing import Dict, Optional
 
@@ -98,6 +107,9 @@ from ..models.variants import (EagerMemoryConfig, dyrep_messages,
 from ..ops.wire import (DedupWire, compact_wire, eval_lean_dedup, expand_any,
                         nb_bucket_of, wire_to_device)
 from ..utils.config import FrameworkConfig
+from ..utils.metrics import MetricsLogger
+from .checkpoint import (CHECKPOINT_SUFFIX, EarlyStopMonitor, load_state,
+                         rng_state_from_array, rng_state_to_array, save_state)
 from .evaluator import ap_auc, parse_eval_metric, rank_metric_from_counts
 from .negatives import FixedNegatives, NegLinkSamplerDest
 
@@ -248,6 +260,8 @@ class Engine:
         self.last_epoch_trace: Dict[str, float] = {}
         self.last_eval_trace: Dict[str, object] = {}
         self._eval_gate_logged: set = set()
+        self._step = 0       # batches trained
+        self._epoch = 0      # epochs trained (the resume cursor)
 
     # ------------------------------------------------------------ batches
     def blocks_for(self, split: str) -> np.ndarray:
@@ -472,6 +486,7 @@ class Engine:
             _, acc = self._train_step(self._expand(wire, iw), acc)
             disp_s += time.perf_counter() - t2
             nb += 1
+            self._step += 1
             total += hi - lo
         vals = acc.cpu().numpy()                    # ONE fetch
         self.last_epoch_trace = {"total_s": time.perf_counter() - t0,
@@ -785,3 +800,195 @@ class Engine:
                                 **tm, "protocol": protocol, **n,
                                 "chunks": n["embed_chunks"]}
         return float(vals[0] / max(float(vals[1]), 1.0))
+
+    # ------------------------------------------------------- the epoch loop
+    def fit(self, epochs: Optional[int] = None, log=print,
+            early_stop: Optional[EarlyStopMonitor] = None,
+            checkpoint_dir: Optional[str] = None,
+            checkpoint_every: int = 0,
+            log_dir: Optional[str] = None,
+            val_snapshot: bool = False) -> Dict[str, list]:
+        """Epoch loop mirroring tgb_tgn_dgl_tpu engine/train.py:2010-2081
+        (reference pyg-mem-tgn.py:53-67): ``epochs`` more epochs, the
+        config's count when None, none when 0 (the JAX ``fit`` reads 0 as
+        None), each followed by a val pass; labels and checkpoint names
+        continue from ``_epoch``.
+        Besides the JAX events, ``metrics.jsonl`` gets a ``checkpoint``
+        event with the file's bytes and the save's seconds."""
+        metrics = MetricsLogger(log_dir)
+        if epochs is None:
+            epochs = self.config.train.epoch
+        history = {"loss": [], "val": [], "train_s": [], "val_s": []}
+        start = time.time()
+        e0 = self._epoch
+        try:
+            for e in range(e0, e0 + epochs):
+                t0 = time.time()
+                stats = self.train_epoch()      # ends on its metrics fetch
+                self._epoch = e + 1
+                t1 = time.time()
+                log(f"Epoch: {e + 1:02d}, Loss: {stats['loss']:.4f}, "
+                    f"AP: {stats['ap']:.4f}, AUC: {stats['auc']:.4f}, "
+                    f"Training elapsed Time (s): {t1 - t0: .4f}")
+                history["loss"].append(stats["loss"])
+                history["train_s"].append(t1 - t0)
+                metrics.log("train_epoch", epoch=e + 1, loss=stats["loss"],
+                            ap=stats["ap"], auc=stats["auc"],
+                            events=stats["events"], seconds=round(t1 - t0, 4),
+                            events_per_s=round(stats["events"]
+                                               / max(t1 - t0, 1e-9), 1))
+                val = None
+                if self.data.val_ns is not None:
+                    t0 = time.time()
+                    # val_snapshot keeps the streaming eval's state changes
+                    # (clocks, cache, memory advance through val in the
+                    # reference protocol) out of training
+                    snap = self.snapshot_stream() if val_snapshot else None
+                    val = self.evaluate("val")
+                    if snap is not None:
+                        self.restore_stream(snap)
+                    t1 = time.time()
+                    log(f"Validation {self.data.eval_metric}: {val: .4f}, "
+                        f"elapsed Time (s): {t1 - t0: .4f}")
+                    history["val"].append(val)
+                    history["val_s"].append(t1 - t0)
+                    metrics.log("val", epoch=e + 1,
+                                metric=self.data.eval_metric, value=val,
+                                seconds=round(t1 - t0, 4))
+                if checkpoint_dir and checkpoint_every \
+                        and (e + 1) % checkpoint_every == 0:
+                    path = os.path.join(
+                        checkpoint_dir,
+                        f"ckpt_epoch{e + 1:04d}{CHECKPOINT_SUFFIX}")
+                    t0 = time.time()
+                    self.save_checkpoint(path)
+                    metrics.log("checkpoint", epoch=e + 1, path=path,
+                                bytes=os.path.getsize(path),
+                                seconds=round(time.time() - t0, 4))
+                if early_stop is not None and val is not None:
+                    if early_stop.step_check(val, self._model_state()):
+                        log(f"INFO: early stopping at epoch {e + 1} "
+                            f"(best epoch {early_stop.best_epoch})")
+                        if early_stop.best_path:
+                            self._restore_model_state(early_stop.load_best(
+                                self._model_state(), self.device))
+                        break
+            log(f"Execution Time: {time.time() - start:.6f} seconds")
+        finally:
+            metrics.close()
+        return history
+
+    # ---------------------------------------------------- stream snapshots
+    def snapshot_stream(self):
+        """A copy of the whole stream state: the packer's (cache, clocks,
+        mail ring pointers, event cursor) and the memory's (tgb_tgn_dgl_tpu
+        engine/train.py:2084-2097).  Taken around a val pass it keeps the
+        streaming eval's changes out of training (the reference's unwired
+        backup_memory/restore_memory, model_utils.py:290-308)."""
+        snap = {"packer": self.packer.snapshot()}
+        if self.use_memory:
+            snap["mem_state"] = _clone_state(self.mem_state)
+        return snap
+
+    def restore_stream(self, snap) -> None:
+        """Restore a ``snapshot_stream`` copy; the snapshot stays valid
+        (the memory is cloned again: later commits write in place)."""
+        self.packer.restore(snap["packer"])
+        if self.use_memory:
+            self.mem_state = _clone_state(snap["mem_state"])
+
+    # ------------------------------------------------------- checkpointing
+    def _model_state(self):
+        """The learnable state only (the reference monitor checkpoints
+        model state_dicts, modules/early_stopping.py:68-77)."""
+        return {"params": self.model.state_dict()}
+
+    def _restore_model_state(self, state) -> None:
+        self.model.load_state_dict(state["params"])
+
+    def _full_state(self):
+        """Everything a run resumes from exactly (tgb_tgn_dgl_tpu
+        engine/train.py:2117-2145): the parameters, Adam's state, the
+        dropout generator's state and its device type, the negative
+        sampler's PCG64 state (hi/lo words as int64), the cursors, the
+        packer's state with its sticky shape buckets (which the JAX
+        checkpoint leaves out) and the memory's."""
+        opt = self.optimizer.state_dict()
+        # Adam makes its moments at a parameter's first step; until then
+        # they are written as the zeros it starts from, so that every
+        # checkpoint has the same keys and shapes
+        for i, p in enumerate(self.model.parameters()):
+            opt["state"].setdefault(i, {
+                "step": torch.tensor(0.0), "exp_avg": torch.zeros_like(p),
+                "exp_avg_sq": torch.zeros_like(p)})
+        nbr, eid, t, clock, cur, ptr = self.packer.snapshot()
+        st = {
+            "params": self.model.state_dict(),
+            "optimizer": opt,
+            "generator": self.generator.get_state(),
+            "generator_device": self.generator.device.type,
+            "neg_rng": torch.from_numpy(
+                rng_state_to_array(self.neg_sampler.rng).view(np.int64)),
+            "step": self._step,
+            "epoch": self._epoch,
+            "packer": {
+                "cache_nbr": torch.from_numpy(nbr),
+                "cache_eid": torch.from_numpy(eid),
+                "cache_t": torch.from_numpy(t),
+                "clock": torch.from_numpy(clock),
+                "cur_e_id": int(cur),
+                "mail_ptr": torch.from_numpy(ptr),
+                # the padded sizes the next packs start from: a resumed
+                # run pads (and so sums, on the GPU) as this run would
+                "buckets": self.packer.bucket_state(),
+            },
+        }
+        if self.use_memory:
+            st["mem_state"] = dict(zip(self.mem_state._fields,
+                                       self.mem_state))
+        return st
+
+    def save_checkpoint(self, path: str) -> None:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        save_state(path, self._full_state())
+
+    def load_checkpoint(self, path: str) -> None:
+        """Restore a ``save_checkpoint`` file.  A missing key or a shape
+        that differs raises and names it; a generator state from another
+        device type raises ValueError (the CUDA Philox state and the CPU
+        Mersenne Twister state cannot stand in for each other)."""
+        template = self._full_state()
+        # its size is the device type's: the type is checked first, below
+        del template["generator"]
+        # the file's buckets replace the engine's whole: a key that this
+        # engine has packed (an eval's, say) is not asked of the file
+        del template["packer"]["buckets"]
+        st = load_state(path, template, self.device)
+        mine = self.generator.device.type
+        if st["generator_device"] != mine:
+            raise ValueError(
+                f"checkpoint {path} holds a {st['generator_device']} "
+                f"generator state; this engine's generator is on {mine}")
+        self.generator.set_state(st["generator"].cpu())
+        self.model.load_state_dict(st["params"])
+        opt = st["optimizer"]
+        for s in opt["state"].values():
+            # Adam keeps its step counts on the host, as a fresh optimizer
+            s["step"] = s["step"].cpu()
+        self.optimizer.load_state_dict(opt)
+        self.neg_sampler.rng = rng_state_from_array(
+            st["neg_rng"].cpu().numpy().view(np.uint64))
+        self._step = int(st["step"])
+        self._epoch = int(st["epoch"])
+        pk = st["packer"]
+        nbr, eid, t, clock, ptr = (pk[k].cpu().numpy() for k in (
+            "cache_nbr", "cache_eid", "cache_t", "clock", "mail_ptr"))
+        self.packer.restore((nbr, eid, t, clock, int(pk["cur_e_id"]), ptr))
+        self.packer.load_bucket_state(pk["buckets"])
+        if self.use_memory:
+            self.mem_state = type(self.mem_state)(**st["mem_state"])
+
+
+def _clone_state(state):
+    """A copy of a memory state NamedTuple, tensor by tensor."""
+    return type(state)(*(t.clone() for t in state))
