@@ -36,6 +36,19 @@ device, phase by phase, one JSON line per phase:
              is held within 1e-4 (its Δt-encoding columns within 1e-3),
              and DyRep's val pass also runs by column chunks from the
              state after training
+  device_cache_reference
+             device-cache mode (train.device_cache) on the tiny stream,
+             frozen and with the memory: GPU against CPU as in
+             memory_reference (the device state exactly) and against the
+             host-pack GPU engine; then a GPU run resumed from its epoch-1
+             checkpoint must equal the uninterrupted run exactly (loss,
+             val MRR, device state, memory), and a val pass between
+             snapshot_stream and restore_stream must leave the device
+             clocks bit-equal
+  train_lean_reference
+             the train-lean wire (train.wire_train_lean) on the tiny
+             stream, frozen and with the memory: GPU against CPU, and
+             against the full-Δt wire on the GPU
   wire       the native packer and the numpy packer in lockstep on the
              tgbl-wiki-shaped stream (TGN.yml widths): 4 train batches as
              dedup wires, one as a compact wire, then the first 2 and the
@@ -51,6 +64,18 @@ device, phase by phase, one JSON line per phase:
              negative chunks of the first val batch as compact wires with
              their rslot fields, each expanded on the card equal to
              to_device of the numpy pack, nbr_rslot included
+  lean_wire  device-cache mode's wire at TGN-memory.yml's packer settings
+             on the tgbl-wiki-shaped stream: over the whole train split
+             and every negative chunk of the first 2 val batches the lean
+             packer, the host packer and the dedup packer in lockstep;
+             expand_lean on the card must equal to_device of the host
+             pack exactly, and after each batch the device state
+             (advance_stream) the host packer's cache and clocks; the
+             lean wire's bytes and host ms beside the dedup wire's
+  train_lean_wire
+             the train-lean wire on the same stream: every train batch's
+             expansion on the card equal to the full-Δt wire's; both
+             wires' bytes
   train      Engine on the tgbl-wiki-shaped synthetic stream with
              configs/TGN.yml at full width: the full train split (56 Adam
              steps) at the default dropout 0.2, the first step's time
@@ -72,6 +97,17 @@ device, phase by phase, one JSON line per phase:
   memory_eval, memory_eval_unique_vs_chunked
              its val pass and the comparison, which also holds the
              MemoryStates after both passes equal (mem within 1e-4)
+  device_cache_train, device_cache_eval, device_cache_memory_train,
+  device_cache_memory_eval
+             configs/TGN.yml and configs/TGN-memory.yml with
+             device_cache: true at full width: the full train split, then
+             the val pass (the gate must close with "device_cache mode":
+             column chunks, each packed on the main thread), beside the
+             host-pack arms above: edges/s, the val pass's seconds, host
+             times, peak memory, wire bytes, the val MRR's difference
+  train_lean_train, train_lean_memory_train
+             the same two configurations with wire_train_lean: true, the
+             full train split beside the host-pack arms
   layer2_train, layer2_eval
              configs/TGN-2layer.yml (two attention layers, GRU memory) at
              full width: the full train split at dropout 0.2, packed on the
@@ -102,6 +138,11 @@ device, phase by phase, one JSON line per phase:
              column chunks: one train epoch, then the val pass by the
              port's gate (slot-unique) and by column chunks from the same
              state, MRR and packer state held together, both timed
+  device_cache_large_n
+             configs/TGN.yml on the eval_low_dedup stream (352,637
+             nodes, 70,000 events): one train epoch on the host packer and
+             one in device-cache mode; seconds, host times, wire bytes and
+             the device state's bytes
   pad_mask   a tiny stream with ragged negatives (1..24 a row), pad_mask
              and hits@10: GPU against CPU on val and test by both
              protocols, and each GPU val pass waits for the device once
@@ -138,12 +179,19 @@ device, phase by phase, one JSON line per phase:
              inference forward once an embed chunk), on the fit path (the
              fit phase's first CLI run: the dropout pair 56 times an
              epoch, the inference forward once an embed chunk of its two
-             val passes and its test pass), each path's counts set to 0
-             just before it; the kernel table sums them
+             val passes and its test pass), on the device-cache paths
+             (TGN.yml and TGN-memory.yml: the dropout pair 56 times an
+             epoch, the inference forward once a column chunk) and the
+             train-lean paths (the dropout pair 56 times an epoch), each
+             path's counts set to 0 just before it; the kernel table sums
+             them
   profile    torch.profiler over 4 train steps and one val batch (by the
              slot-unique and by the column-chunk protocol) of a fresh
              engine, frozen, memory, JODIE and DyRep, and at gnn.layer 2
-             (one val batch by column chunks): wall time, host packing,
+             (one val batch by column chunks); in device-cache mode (4
+             train steps, one val batch by column chunks) and with the
+             train-lean wire (4 train steps): wall time, host packing,
+             kernel launches,
              device busy time
              and the kernels that take it; then each run again under
              torch.cuda's sync debug mode, which must see one
@@ -441,6 +489,22 @@ def _tiny(pkg, num_neg=8):
                          num_neg=num_neg, seed=1)
 
 
+def _recording_engine(pkg, raw, dev):
+    """An engine of ``raw`` on the tiny stream on ``dev``, and the list its
+    train steps append their losses to."""
+    eng = pkg.Engine(_tiny(pkg), pkg.parse_config_dict(raw), device=dev)
+    losses = []
+    step = eng._train_step
+
+    def rec(pack, acc):
+        loss, acc = step(pack, acc)
+        losses.append(float(loss))
+        return loss, acc
+
+    eng._train_step = rec
+    return eng, losses
+
+
 def _gpu_and_cpu(pkg, raw, protocol="slot_unique", chunked=False):
     """Train one epoch and run the val pass, then the test pass, of the
     tiny stream on the GPU and on the CPU from the same seed (so the same
@@ -448,19 +512,9 @@ def _gpu_and_cpu(pkg, raw, protocol="slot_unique", chunked=False):
     losses, val MRR, engine, test MRR)}.  With ``chunked`` each device
     first runs the val pass by column chunks from the state after
     training and restores that state; its MRR ends the tuple."""
-    data = _tiny(pkg)
     out = {}
     for dev in ("cuda", "cpu"):
-        eng = pkg.Engine(data, pkg.parse_config_dict(raw), device=dev)
-        losses = []
-        step = eng._train_step
-
-        def rec(pack, acc, step=step, losses=losses):
-            loss, acc = step(pack, acc)
-            losses.append(float(loss))
-            return loss, acc
-
-        eng._train_step = rec
+        eng, losses = _recording_engine(pkg, raw, dev)
         eng.train_epoch()
         extra = ()
         if chunked:
@@ -884,7 +938,7 @@ def phase_train(torch, pkg, data, cfg_path):
     import math
     if not (math.isfinite(stats["loss"]) and math.isfinite(stats0["loss"])):
         raise AssertionError("non-finite training loss")
-    return eng
+    return eng, res
 
 
 def phase_memory_train(torch, pkg, data, cfg_path, phase="memory_train",
@@ -908,31 +962,32 @@ def phase_memory_train(torch, pkg, data, cfg_path, phase="memory_train",
     tr = eng.last_epoch_trace
     st = eng.mem_state
     nonzero = int((st.mem.abs().sum(1) > 0).sum())
-    emit(dict(phase=phase, events=stats["events"],
-              steps=tr["batches"], loss_sum=stats["loss"], ap=stats["ap"],
-              auc=stats["auc"],
-              **_train_times(stats, tr, rec, cfg.train.batch_size),
-              mem_nonzero_rows=nonzero,
-              valid_mail=int(st.mail_valid.sum()),
-              width=dict(arch=cfg.gnn.arch, D=cfg.gnn.dim_out,
-                         H=cfg.gnn.att_head, K=cfg.sampling.num_neighbors,
-                         layers=cfg.gnn.layer,
-                         message_mode=cfg.gnn.message_mode,
-                         batch=cfg.train.batch_size, msg=data.msg_dim,
-                         dropout=[cfg.train.dropout, cfg.train.att_dropout],
-                         memory_dim=eng.mem_cfg.memory_dim,
-                         # the cell's input: the lazy message, or DyRep's
-                         # stored mail
-                         cell_input=getattr(eng.mem_cfg, "mail_dim", None)
-                         or eng.mem_cfg.msg_dim,
-                         mailbox=cfg.memory.mailbox_size,
-                         updater=eng.mem_cfg.updater),
-              peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30))
+    res = dict(phase=phase, events=stats["events"],
+               steps=tr["batches"], loss_sum=stats["loss"], ap=stats["ap"],
+               auc=stats["auc"],
+               **_train_times(stats, tr, rec, cfg.train.batch_size),
+               mem_nonzero_rows=nonzero,
+               valid_mail=int(st.mail_valid.sum()),
+               width=dict(arch=cfg.gnn.arch, D=cfg.gnn.dim_out,
+                          H=cfg.gnn.att_head, K=cfg.sampling.num_neighbors,
+                          layers=cfg.gnn.layer,
+                          message_mode=cfg.gnn.message_mode,
+                          batch=cfg.train.batch_size, msg=data.msg_dim,
+                          dropout=[cfg.train.dropout, cfg.train.att_dropout],
+                          memory_dim=eng.mem_cfg.memory_dim,
+                          # the cell's input: the lazy message, or DyRep's
+                          # stored mail
+                          cell_input=getattr(eng.mem_cfg, "mail_dim", None)
+                          or eng.mem_cfg.msg_dim,
+                          mailbox=cfg.memory.mailbox_size,
+                          updater=eng.mem_cfg.updater),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    emit(res)
     if not math.isfinite(stats["loss"]):
         raise AssertionError("non-finite memory training loss")
     if nonzero == 0:
         raise AssertionError("the memory is still all zeros after training")
-    return eng
+    return eng, res
 
 
 def _eval_record(tr):
@@ -1022,6 +1077,7 @@ def phase_eval_unique_vs_chunked(torch, eng, snap, unique, phase):
     if not ok:
         raise AssertionError("the slot-unique and column-chunk val passes "
                              "disagree")
+    return res
 
 
 # a stream of tgbl-review's node count and negatives, cut in events
@@ -1222,21 +1278,10 @@ def phase_fit_reference(torch, pkg, tmp):
     the packer's padded shapes)."""
     from tgb_tgn_dgl_tpu_torch.engine.checkpoint import EarlyStopMonitor
     from tgb_tgn_dgl_tpu_torch.ops import attention
-    data = _tiny(pkg)
-    raw = pkg.parse_config_dict(MEMORY_RAW)
     runs = {}
     attention.reset_launch_counts()
     for dev in ("cuda", "cpu"):
-        eng = pkg.Engine(data, raw, device=dev)
-        steps = []
-        step = eng._train_step
-
-        def rec(pack, acc, step=step, steps=steps):
-            loss, acc = step(pack, acc)
-            steps.append(float(loss))
-            return loss, acc
-
-        eng._train_step = rec
+        eng, steps = _recording_engine(pkg, MEMORY_RAW, dev)
         ckpt_dir = os.path.join(tmp, f"fit_reference_{dev}")
         hist = eng.fit(epochs=FIT_EPOCHS, log=lambda line: None,
                        val_snapshot=True, checkpoint_dir=ckpt_dir,
@@ -1246,7 +1291,7 @@ def phase_fit_reference(torch, pkg, tmp):
         runs[dev] = (hist, steps, ckpt_dir)
     launches = dict(attention.launch_counts)
     (hg, sg, ckpt_dir), (hc, sc, _) = runs["cuda"], runs["cpu"]
-    resumed = pkg.Engine(data, raw)
+    resumed = pkg.Engine(_tiny(pkg), pkg.parse_config_dict(MEMORY_RAW))
     resumed.load_checkpoint(os.path.join(ckpt_dir, "ckpt_epoch0001.pt"))
     hr = resumed.fit(epochs=1, log=lambda line: None, val_snapshot=True)
 
@@ -1428,12 +1473,474 @@ def phase_fit(torch, root, tmp):
     return first["launches"], first["expected"]
 
 
+# --------------------------------------------- device-side stream state
+# DevicePack fields of a lean expansion that must equal the host pack (the
+# lean read set, uniq_nid / root_loc / nbr_loc, repeats nodes by design)
+LEAN_COMPARE = ("ev_src", "ev_dst", "ev_t", "ev_idx", "ev_valid", "ev_neg",
+                "root_nid", "root_valid", "nbr_nid", "nbr_dt", "nbr_kind",
+                "nbr_feat", "ev_src_slot", "ev_pos_slot", "ev_neg_slot",
+                "mw_node", "mw_slot", "mw_partner", "mw_t", "mw_eid")
+LEAN_VAL_BATCHES = 2
+
+
+def _split_batches(data, cfg, split, sampler=None, fixed=None):
+    """(rows, blocks, negatives) of each batch of ``split`` at the
+    config's batch size: one sampled negative an event (``sampler``) or
+    the fixed negatives (``fixed``); and the split's blocks."""
+    from tgb_tgn_dgl_tpu_torch.data.dependency import dependency_aware_batch
+    B = cfg.train.batch_size
+    rows = getattr(data, f"{split}_mask").nonzero()[0]
+    blocks = dependency_aware_batch(data.src[rows], data.dst[rows], B)
+    out = []
+    for lo in range(0, len(rows), B):
+        r, blk = rows[lo:lo + B], blocks[lo:lo + B]
+        neg = (sampler.sample(data.dst[r]) if fixed is None
+               else fixed.query_batch(lo, lo + len(r))[0])
+        out.append((r, blk, neg))
+    return out, blocks
+
+
+def _packer_config(cfg):
+    from tgb_tgn_dgl_tpu_torch.data.packer import PackerConfig
+    return PackerConfig(num_neighbors=cfg.sampling.num_neighbors,
+                        batch_size=cfg.train.batch_size,
+                        max_intra_block=cfg.train.max_intra_block,
+                        mailbox_size=cfg.memory.mailbox_size)
+
+
+def phase_lean_wire(torch, data, cfg_path):
+    """Device-cache mode's wire at full width (the packer settings of
+    ``cfg_path``, TGN-memory.yml: K=10, batch 2000, max_intra_block 32,
+    mailbox 1) on the tgbl-wiki-shaped stream: the lean packer, the host
+    packer (``pack``, the plain version) and the dedup packer in lockstep
+    over the whole train split and every negative chunk of the first
+    LEAN_VAL_BATCHES val batches.  Each lean wire crosses to the card and
+    ``expand_lean`` rebuilds the DevicePack there from the resident
+    state: equal to to_device of the host pack in LEAN_COMPARE's fields,
+    dtypes included; after each batch (at eval, its last chunk)
+    ``advance_stream``'s state must equal the host packer's snapshot
+    exactly: cache neighbors, event ids, times and clocks; so must the
+    epoch-start reset.  Reports the lean wire's bytes per train batch and
+    per eval chunk beside the dedup wire's (eval chunks eval-lean, as the
+    engine ships them), and the host ms of both packs."""
+    import numpy as np
+    from tgb_tgn_dgl_tpu_torch.data.lean_packer import NativeLeanPacker
+    from tgb_tgn_dgl_tpu_torch.data.native_packer import NativeStreamPacker
+    from tgb_tgn_dgl_tpu_torch.data.packer import to_device
+    from tgb_tgn_dgl_tpu_torch.engine.negatives import (FixedNegatives,
+                                                        NegLinkSamplerDest)
+    from tgb_tgn_dgl_tpu_torch.engine.train import eval_neg_chunk_size
+    from tgb_tgn_dgl_tpu_torch.ops.lean_wire import (advance_stream,
+                                                     expand_lean,
+                                                     init_stream_device_state,
+                                                     reset_stream_cache)
+    from tgb_tgn_dgl_tpu_torch.ops.wire import (eval_lean_dedup,
+                                                nb_bucket_of, wire_nbytes,
+                                                wire_to_device)
+    from tgb_tgn_dgl_tpu_torch.utils.config import parse_config
+    cfg = parse_config(cfg_path)
+    B, K, N = cfg.train.batch_size, cfg.sampling.num_neighbors, data.num_nodes
+    pk = _packer_config(cfg)
+    host, dedup = NativeStreamPacker(N, pk), NativeStreamPacker(N, pk)
+    lean = NativeLeanPacker(N, pk)
+    st = init_stream_device_state(N, K, "cuda")
+    rec = {f"{w}_{k}_{u}": [] for w in ("lean", "dedup")
+           for k in ("train", "chunk") for u in ("bytes", "ms")}
+    bad = []
+
+    def state_differs():
+        nbr, eid, t, clock = host.snapshot()[:4]
+        return [name for name, a, b in (
+            ("cache_nbr", st.cache.neighbors, nbr),
+            ("cache_eid", st.cache.e_id, eid.astype(np.int32)),
+            ("cache_t", st.cache.t, t), ("clock", st.clock, clock))
+            if not np.array_equal(a[:-1].cpu().numpy(), b)]
+
+    def step(what, args, kw, last, post=None):
+        nonlocal st
+        em = kw.get("eval_mode", False)
+        kind = "chunk" if em else "train"
+        t0 = time.perf_counter()
+        lw, iw = lean.pack_wire(*args, **kw)
+        t1 = time.perf_counter()
+        dw, _ = dedup.pack_wire_dedup(*args, **kw)
+        t2 = time.perf_counter()
+        if post is not None:
+            dw = post(dw)
+        want = to_device(host.pack(*args, **kw), "cuda")
+        dev = wire_to_device(lw, "cuda")
+        got, _ = expand_lean(dev, st, K, iw, N, eval_mode=em, batch_size=B)
+        differ = [f for f in LEAN_COMPARE
+                  if getattr(got, f).dtype != getattr(want, f).dtype
+                  or not torch.equal(getattr(got, f), getattr(want, f))]
+        if last:
+            st = advance_stream(st, dev, N, eval_mode=em)
+            differ += state_differs()
+        if differ:
+            bad.append((what, differ))
+        rec[f"lean_{kind}_bytes"].append(wire_nbytes(lw))
+        rec[f"dedup_{kind}_bytes"].append(wire_nbytes(dw))
+        rec[f"lean_{kind}_ms"].append((t1 - t0) * 1e3)
+        rec[f"dedup_{kind}_ms"].append((t2 - t1) * 1e3)
+
+    train, _ = _split_batches(data, cfg, "train", NegLinkSamplerDest(
+        data.unique_dst(), seed=cfg.train.seed))
+    for bi, (r, blk, neg) in enumerate(train):
+        step(f"train batch {bi}",
+             (data.src[r], data.dst[r], data.t[r], r, blk, neg), {}, True)
+    val, vblocks = _split_batches(data, cfg, "val",
+                                  fixed=FixedNegatives(data.val_ns))
+    nbb = nb_bucket_of(vblocks)
+    chunks = 0
+    for bi, (r, blk, neg) in enumerate(val[:LEAN_VAL_BATCHES]):
+        Mc = eval_neg_chunk_size(cfg, neg.shape[1], len(r))
+        n_chunks = -(-neg.shape[1] // Mc)
+        for ci in range(n_chunks):
+            last = ci == n_chunks - 1
+            step(f"val batch {bi} chunk {ci}",
+                 (data.src[r], data.dst[r], data.t[r], r, blk,
+                  neg[:, ci * Mc:(ci + 1) * Mc]),
+                 dict(eval_mode=True, insert=last, write_mail=last), last,
+                 post=lambda w, blk=blk: eval_lean_dedup(w, blk, nbb))
+            chunks += 1
+    host.reset_cache()
+    st = reset_stream_cache(st)
+    reset_differs = state_differs()
+    med = {k: statistics.median(v) for k, v in rec.items()}
+    emit(dict(phase="lean_wire", train_batches=len(train),
+              eval_chunks=chunks,
+              val_batches=len(val[:LEAN_VAL_BATCHES]),
+              fields_differ=bad[:5], reset_differs=reset_differs,
+              median=med,
+              lean_over_dedup_bytes={
+                  k: med[f"lean_{k}_bytes"] / med[f"dedup_{k}_bytes"]
+                  for k in ("train", "chunk")},
+              lean_over_dedup_ms={
+                  k: med[f"lean_{k}_ms"] / med[f"dedup_{k}_ms"]
+                  for k in ("train", "chunk")},
+              max_bytes={k: max(v) for k, v in rec.items()
+                         if k.endswith("bytes")},
+              sstate_bytes=sum(t.numel() * t.element_size()
+                               for t in (*st.cache, st.clock)),
+              host_ms_is="the chip machine's CPU, this call"))
+    if bad or reset_differs:
+        raise AssertionError(f"lean expansion or device state differs from "
+                             f"the host packer: {bad[:5]} {reset_differs}")
+
+
+def phase_train_lean_wire(torch, data, cfg_path):
+    """The train-lean wire at full width on the same stream: over the whole
+    train split, each dedup wire and its ``train_lean_dedup`` (the clocks
+    read from the packer before the batch) cross to the card and expand
+    there; the train-lean expansion must equal the full-Δt one exactly.
+    Bytes of both wires and the post-pass's host ms."""
+    from tgb_tgn_dgl_tpu_torch.data.native_packer import NativeStreamPacker
+    from tgb_tgn_dgl_tpu_torch.engine.negatives import NegLinkSamplerDest
+    from tgb_tgn_dgl_tpu_torch.ops.wire import (expand_any, nb_bucket_of,
+                                                train_lean_dedup,
+                                                wire_nbytes, wire_to_device)
+    from tgb_tgn_dgl_tpu_torch.utils.config import parse_config
+    cfg = parse_config(cfg_path)
+    K, N = cfg.sampling.num_neighbors, data.num_nodes
+    packer = NativeStreamPacker(N, _packer_config(cfg))
+    times = torch.from_numpy(data.t.astype("float32")).cuda()
+    train, blocks = _split_batches(data, cfg, "train", NegLinkSamplerDest(
+        data.unique_dst(), seed=cfg.train.seed))
+    nbb = nb_bucket_of(blocks)
+    rec = {"full_bytes": [], "lean_bytes": [], "post_ms": []}
+    bad, not_lean = [], []
+    for bi, (r, blk, neg) in enumerate(train):
+        clock = packer.clock_snapshot()
+        w, iw = packer.pack_wire_dedup(data.src[r], data.dst[r], data.t[r],
+                                       r, blk, neg)
+        t0 = time.perf_counter()
+        lw = train_lean_dedup(w, blk, nbb, clock)
+        rec["post_ms"].append((time.perf_counter() - t0) * 1e3)
+        if lw.clock0 is None:
+            not_lean.append(bi)
+        full = expand_any(wire_to_device(w, "cuda"), K, iw, N)
+        got = expand_any(wire_to_device(lw, "cuda"), K, iw, N, times)
+        differ = _fields_differ(torch, got, full)
+        if differ:
+            bad.append((bi, differ))
+        rec["full_bytes"].append(wire_nbytes(w))
+        rec["lean_bytes"].append(wire_nbytes(lw))
+    med = {k: statistics.median(v) for k, v in rec.items()}
+    emit(dict(phase="train_lean_wire", train_batches=len(train),
+              nb_bucket=nbb, fields_differ=bad[:5], not_lean=not_lean,
+              median=med,
+              lean_over_full_bytes=med["lean_bytes"] / med["full_bytes"],
+              host_ms_is="the chip machine's CPU, this call"))
+    if bad or not_lean:
+        raise AssertionError(f"train-lean expansion differs from the full "
+                             f"wire's: {bad[:5]}, not lean: {not_lean}")
+
+
+def _with_train(raw, **train):
+    return dict(raw, train=[dict(raw["train"][0], **train)])
+
+
+def _tiny_run(pkg, raw, dev):
+    """One train epoch and the val pass of the tiny stream on ``dev``:
+    (per-step losses, epoch stats, val MRR, engine)."""
+    eng, losses = _recording_engine(pkg, raw, dev)
+    stats = eng.train_epoch()
+    return losses, stats, eng.evaluate("val"), eng
+
+
+def _sstate_equal(torch, a, b):
+    return all(torch.equal(x.cpu(), y.cpu())
+               for x, y in zip((*a.cache, a.clock), (*b.cache, b.clock)))
+
+
+def _against_other_arm(torch, phase, arm, got, want):
+    """Two tiny GPU runs of the same weights, one per transport: the
+    largest per-step loss difference, the epoch losses, the val MRRs and,
+    with the memory, the memory states; within the reference phases'
+    tolerances."""
+    (lg, sg, mg, eg), (lw, sw, mw, ew) = got, want
+    res = dict(max_loss_diff=max(abs(a - b) for a, b in zip(lg, lw)),
+               epoch_loss=sg["loss"], epoch_loss_other=sw["loss"],
+               mrr=mg, mrr_other=mw, mrr_diff=abs(mg - mw))
+    ok = (len(lg) == len(lw) == 6 and res["max_loss_diff"] <= LOSS_TOL
+          and res["mrr_diff"] <= MRR_TOL)
+    if eg.use_memory:
+        diff, same = _state_diff(torch, eg.mem_state, ew.mem_state)
+        res.update(diff)
+        ok = ok and same
+    if not ok:
+        raise AssertionError(f"{phase}: {arm} disagrees with the other "
+                             f"transport: {res}")
+    return res
+
+
+def phase_device_cache_reference(torch, pkg):
+    """Device-cache mode on the tiny stream at dropout 0 (so attention_fwd
+    and attention_bwd run), frozen and with the memory: the GPU engine
+    against the CPU engine at the memory_reference tolerances (the device
+    state exactly), and against the host-pack GPU engine (losses, val MRR,
+    memory state; the largest differences printed).  Then, with the
+    memory, a GPU run resumed from its epoch-1 checkpoint gives the
+    uninterrupted run's epoch 2 exactly (loss, val MRR, device state,
+    memory), and ``snapshot_stream``/``restore_stream`` around a val pass
+    give the device clocks back bit-equal.  Returns the GPU runs'
+    launches."""
+    from tgb_tgn_dgl_tpu_torch.ops import attention
+    attention.reset_launch_counts()
+    for name, raw in (("frozen", REFERENCE_RAW), ("memory", MEMORY_RAW)):
+        dc = _with_train(raw, device_cache=True)
+        out = _gpu_and_cpu(pkg, dc, protocol="column_chunk")
+        res, ok = _compare_runs("device_cache_reference", out)
+        eg, ec = out["cuda"][2], out["cpu"][2]
+        res.update(path=name, device_cache=eg.device_cache,
+                   sstate_gpu_equals_cpu=_sstate_equal(torch, eg.sstate,
+                                                       ec.sstate))
+        ok = ok and eg.device_cache and res["sstate_gpu_equals_cpu"]
+        if eg.use_memory:
+            diff, same = _state_diff(torch, eg.mem_state, ec.mem_state)
+            res.update(diff)
+            ok = ok and same
+        res["vs_host_pack_gpu"] = _against_other_arm(
+            torch, "device_cache_reference", name,
+            _tiny_run(pkg, dc, "cuda"), _tiny_run(pkg, raw, "cuda"))
+        emit(res)
+        if not ok:
+            raise AssertionError(f"device_cache_reference {name}: GPU and "
+                                 f"CPU engines disagree")
+    raw = _with_train(MEMORY_RAW, device_cache=True)
+    whole = pkg.Engine(_tiny(pkg), pkg.parse_config_dict(raw))
+    resumed = pkg.Engine(_tiny(pkg), pkg.parse_config_dict(raw))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dc_") as ckpt:
+        hw = whole.fit(epochs=FIT_EPOCHS, log=lambda line: None,
+                       val_snapshot=True, checkpoint_dir=ckpt,
+                       checkpoint_every=1)
+        resumed.load_checkpoint(os.path.join(ckpt, "ckpt_epoch0001.pt"))
+    hr = resumed.fit(epochs=1, log=lambda line: None, val_snapshot=True)
+    mem_equal = all(torch.equal(a, b) for a, b in zip(resumed.mem_state,
+                                                      whole.mem_state))
+    clock0 = whole.sstate.clock.clone()
+    snap = whole.snapshot_stream()
+    whole.evaluate("val")
+    moved = not torch.equal(whole.sstate.clock, clock0)
+    whole.restore_stream(snap)
+    res = dict(phase="device_cache_reference", path="resume",
+               loss=hw["loss"], val=hw["val"], resumed_loss=hr["loss"],
+               resumed_val=hr["val"],
+               resumed_loss_diff=abs(hr["loss"][0] - hw["loss"][1]),
+               resumed_val_diff=abs(hr["val"][0] - hw["val"][1]),
+               resumed_sstate_equal=_sstate_equal(torch, resumed.sstate,
+                                                  whole.sstate),
+               resumed_mem_state_equal=mem_equal,
+               val_pass_moves_clocks=moved,
+               snapshot_restores_clocks=torch.equal(whole.sstate.clock,
+                                                    clock0))
+    launches = dict(attention.launch_counts)
+    res["launches_gpu"] = launches
+    emit(res)
+    if not (res["resumed_loss_diff"] == 0.0 and res["resumed_val_diff"] == 0.0
+            and res["resumed_sstate_equal"] and mem_equal and moved
+            and res["snapshot_restores_clocks"]
+            and launches["attention_fwd"] > 0
+            and launches["attention_bwd"] > 0):
+        raise AssertionError("device_cache_reference: the resumed run or "
+                             "the val snapshot differs")
+    return launches
+
+
+def phase_train_lean_reference(torch, pkg):
+    """The train-lean wire on the tiny stream at dropout 0, frozen and with
+    the memory: GPU against CPU at the memory_reference tolerances (val by
+    the default slot-unique protocol), every train wire train-lean; and
+    against the full-Δt wire on the GPU (losses, val MRR, memory
+    state)."""
+    for name, raw in (("frozen", REFERENCE_RAW), ("memory", MEMORY_RAW)):
+        tl = _with_train(raw, wire_train_lean=True)
+        out = _gpu_and_cpu(pkg, tl)
+        res, ok = _compare_runs("train_lean_reference", out)
+        eg, ec = out["cuda"][2], out["cpu"][2]
+        res.update(path=name, train_lean=eg.train_lean)
+        ok = ok and eg.train_lean
+        if eg.use_memory:
+            diff, same = _state_diff(torch, eg.mem_state, ec.mem_state)
+            res.update(diff)
+            ok = ok and same
+        res["vs_full_wire_gpu"] = _against_other_arm(
+            torch, "train_lean_reference", name,
+            _tiny_run(pkg, tl, "cuda"), _tiny_run(pkg, raw, "cuda"))
+        emit(res)
+        if not ok:
+            raise AssertionError(f"train_lean_reference {name}: GPU and "
+                                 f"CPU engines disagree")
+
+
+def _wire_bytes_spy(eng, out):
+    """Record the host bytes of every wire ``eng`` packs."""
+    from tgb_tgn_dgl_tpu_torch.ops.wire import wire_nbytes
+    packed = eng._packed
+
+    def spy(jobs, tm, *args):
+        for meta, (wire, iw) in packed(jobs, tm, *args):
+            out.append(wire_nbytes(wire))
+            yield meta, (wire, iw)
+
+    eng._packed = spy
+
+
+def phase_transport_train(torch, pkg, data, cfg_path, phase, host,
+                          **train):
+    """One full train split of ``cfg_path`` at full width with the
+    ``train`` knobs (``device_cache`` or ``wire_train_lean``), timed as
+    ``train``/``memory_train`` are, beside ``host``, the host-pack arm's
+    record from the same call; the knob must have taken effect."""
+    import dataclasses
+    import math
+    cfg = pkg.parse_config(cfg_path)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, sanity_batches=0, **train))
+    torch.cuda.reset_peak_memory_stats()
+    eng = pkg.Engine(data, cfg)
+    if not (eng.device_cache or eng.train_lean):
+        raise AssertionError(f"{phase}: {train} did not take effect")
+    nbytes = []
+    _wire_bytes_spy(eng, nbytes)
+    rec = _timed_first_step(torch, eng)
+    torch.cuda.synchronize()
+    rec["start"].record()
+    stats = eng.train_epoch()
+    torch.cuda.synchronize()
+    tr = eng.last_epoch_trace
+    times = _train_times(stats, tr, rec, cfg.train.batch_size)
+    emit(dict(phase=phase, config=os.path.basename(cfg_path), **train,
+              events=stats["events"], steps=tr["batches"],
+              loss_sum=stats["loss"], ap=stats["ap"], auc=stats["auc"],
+              **times, wire_bytes_median=statistics.median(nbytes),
+              peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+              host_pack={k: host[k] for k in (
+                  "loss_sum", "seconds", "edges_per_s",
+                  "after_first_step_edges_per_s", "first_step_s", "pack_s",
+                  "fetch_s", "copy_s", "disp_s", "peak_mem_gb")},
+              edges_per_s_over_host=times["edges_per_s"]
+              / host["edges_per_s"]))
+    if not math.isfinite(stats["loss"]):
+        raise AssertionError(f"{phase}: non-finite training loss")
+    return eng
+
+
+def phase_device_cache_eval(torch, eng, phase, host_unique, host_chunked):
+    """The device-cache engine's val pass with every negative, by the
+    column-chunk protocol (the gate closes with "device_cache mode"),
+    beside the host-pack arm's slot-unique and column-chunk passes from
+    the same call; MRR in (0, 1] and its difference from the host arm's.
+    Returns its record."""
+    mrr, seconds, rec, peak = _val_pass(torch, eng)
+    res = dict(phase=phase, mrr=mrr, seconds=seconds, **rec,
+               peak_mem_gb=peak,
+               gate_closed_by=sorted(eng._eval_gate_logged),
+               host_pack_mrr=host_unique["mrr"],
+               mrr_diff_from_host=mrr - host_unique["mrr"],
+               host_pack_seconds_slot_unique=host_unique["seconds"],
+               host_pack_seconds_column_chunk=host_chunked[
+                   "seconds_column_chunk"],
+               host_pack_column_chunk={k: host_chunked["column_chunk"][k]
+                                       for k in ("pack_s", "fetch_s",
+                                                 "copy_s", "disp_s")})
+    emit(res)
+    if not 0.0 < mrr <= 1.0:
+        raise AssertionError(f"{phase}: val MRR {mrr} outside (0, 1]")
+    if rec["protocol"] != "column_chunk" or res["gate_closed_by"] != [
+            "device_cache mode"]:
+        raise AssertionError(f"{phase}: took {rec['protocol']}, the gate "
+                             f"closed by {res['gate_closed_by']}")
+    return res
+
+
+def phase_device_cache_large_n(torch, pkg, cfg_path):
+    """configs/TGN.yml on a stream of tgbl-review's 352,637 nodes cut to
+    LOW_DEDUP_EDGES events: one train epoch on the host packer and one in
+    device-cache mode, from the same seed.  Seconds, pack_s, fetch_s,
+    copy_s, disp_s, wire bytes a batch, the device state's bytes and the
+    loss of each."""
+    import dataclasses
+    import math
+    data = pkg.synthetic("tgbl-review", num_edges=LOW_DEDUP_EDGES)
+    arms = {}
+    for arm, dc in (("host_pack", False), ("device_cache", True)):
+        cfg = pkg.parse_config(cfg_path)
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, device_cache=dc))
+        torch.cuda.reset_peak_memory_stats()
+        eng = pkg.Engine(data, cfg)
+        nbytes = []
+        _wire_bytes_spy(eng, nbytes)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = eng.train_epoch()
+        torch.cuda.synchronize()
+        tr = eng.last_epoch_trace
+        arms[arm] = dict(
+            seconds=time.perf_counter() - t0, loss_sum=stats["loss"],
+            events=stats["events"], steps=tr["batches"],
+            **{k: tr[k] for k in ("pack_s", "fetch_s", "copy_s", "disp_s")},
+            wire_bytes_median=statistics.median(nbytes),
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+            sstate_bytes=(sum(t.numel() * t.element_size()
+                              for t in (*eng.sstate.cache, eng.sstate.clock))
+                          if dc else None))
+        del eng
+    emit(dict(phase="device_cache_large_n", nodes=data.num_nodes,
+              events=LOW_DEDUP_EDGES, **arms,
+              seconds_ratio=arms["device_cache"]["seconds"]
+              / arms["host_pack"]["seconds"]))
+    if not all(math.isfinite(a["loss_sum"]) for a in arms.values()):
+        raise AssertionError("device_cache_large_n: non-finite loss")
+
+
 def _profiled(torch, fn):
     """Run ``fn`` under torch.profiler; return (wall seconds, kernel
-    seconds, host-to-device copy seconds, top kernels).  Only the trace's
-    device-side entries count (the aten ops that launched them carry the
-    same time again); both sums are None when the trace holds no device
-    entry."""
+    seconds, host-to-device copy seconds, kernel launches, top kernels).
+    Only the trace's device-side entries count (the aten ops that launched
+    them carry the same time again); the sums are None when the trace
+    holds no device entry."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1447,13 +1954,13 @@ def _profiled(torch, fn):
             for e in prof.key_averages()
             if e.device_type == cuda and e.self_device_time_total > 0]
     if not rows:
-        return wall, None, None, []
+        return wall, None, None, None, []
     copies = sum(t for k, t, _ in rows if k.startswith("Memcpy")) / 1e6
     kernels = [r for r in rows if not r[0].startswith(("Memcpy", "Memset"))]
     busy = sum(t for _, t, _ in kernels) / 1e6
     top = [dict(name=k[:90], device_ms=t / 1e3, calls=n)
            for k, t, n in sorted(kernels, key=lambda r: -r[1])[:15]]
-    return wall, busy, copies, top
+    return wall, busy, copies, sum(n for _, _, n in kernels), top
 
 
 def _sync_sites(torch, fn):
@@ -1472,32 +1979,36 @@ def _sync_sites(torch, fn):
             if "called a synchronizing CUDA operation" in str(w.message)]
 
 
-def phase_profile(torch, pkg, data, cfg_path, path, protocol="slot_unique"):
-    """Where the time goes: a traced run of 4 train steps and of the first
-    val batch on a fresh engine of ``path`` (frozen, memory, layer2, jodie
-    or dyrep), by the default protocol, which must be ``protocol``, and,
-    where that is slot-unique, then by the column-chunk protocol (all its
-    negative chunks).  The kernel busy share is the summed kernel
-    time over the wall time; one minus it is the device's idle share
-    (copies run on their own engine).  A run that waits for the device
-    more than once (its one metrics fetch) fails: the host would stall on
-    the device there."""
+def phase_profile(torch, pkg, data, cfg_path, path, protocol="slot_unique",
+                  evals=True, **train):
+    """Where the time goes: a traced run of 4 train steps and (with
+    ``evals``) of the first val batch on a fresh engine of ``path``
+    (frozen, memory, layer2, jodie, dyrep, or device_cache and train_lean
+    with their ``train`` knobs), by the default protocol, which must be
+    ``protocol``, and, where that is slot-unique, then by the column-chunk
+    protocol (all its negative chunks).  The kernel busy share is the
+    summed kernel time over the wall time; one minus it is the device's
+    idle share (copies run on their own engine).  A run that waits for the
+    device more than once (its one metrics fetch) fails: the host would
+    stall on the device there."""
     import dataclasses
     cfg = pkg.parse_config(cfg_path)
-    cfg.train.sanity_batches = 4
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, sanity_batches=4, **train))
     val_rows = data.val_mask.nonzero()[0]
     cut = data.val_mask.copy()
     cut[val_rows[cfg.train.batch_size:]] = False
     eng = pkg.Engine(dataclasses.replace(data, val_mask=cut), cfg)
     eng.train_epoch()                              # warm-up, untraced
 
-    runs = [("train_4_steps", eng.train_epoch),
-            ("eval_first_val_batch", lambda: eng.evaluate("val"))]
-    if protocol == "slot_unique":
+    runs = [("train_4_steps", eng.train_epoch)]
+    if evals:
+        runs.append(("eval_first_val_batch", lambda: eng.evaluate("val")))
+    if evals and protocol == "slot_unique":
         runs.append(("eval_first_val_batch_column_chunk",
                      lambda: eng._evaluate_chunked("val")))
     for what, fn in runs:
-        wall, busy, copies, top = _profiled(torch, fn)
+        wall, busy, copies, launches, top = _profiled(torch, fn)
         trace = (eng.last_epoch_trace if what.startswith("train")
                  else eng.last_eval_trace)
         syncs = _sync_sites(torch, fn)
@@ -1508,7 +2019,7 @@ def phase_profile(torch, pkg, data, cfg_path, path, protocol="slot_unique"):
                   host_pack_s=trace["pack_s"],
                   host_fetch_s=trace["fetch_s"],
                   host_copy_s=trace["copy_s"], host_disp_s=trace["disp_s"],
-                  kernel_busy_s=busy,
+                  kernel_busy_s=busy, kernel_launches=launches,
                   h2d_copy_s=copies,
                   kernel_busy_share=None if busy is None else busy / wall,
                   syncs=len(syncs), sync_sites=sorted(set(syncs)),
@@ -1577,6 +2088,10 @@ def main() -> int:
         phase_jodie_reference(torch, pkg)
         phase = "dyrep_reference"
         phase_dyrep_reference(torch, pkg)
+        phase = "device_cache_reference"
+        phase_device_cache_reference(torch, pkg)
+        phase = "train_lean_reference"
+        phase_train_lean_reference(torch, pkg)
         phase = "wire"
         data = synthetic("tgbl-wiki")
         cfgs = os.path.join(root, "tgb_tgn_dgl_tpu_torch", "configs")
@@ -1588,29 +2103,72 @@ def main() -> int:
         phase_wire(torch, data, cfg_path)
         phase = "layer2_wire"
         phase_layer2_wire(torch, data, layer2_cfg_path)
+        phase = "lean_wire"
+        phase_lean_wire(torch, data, mem_cfg_path)
+        phase = "train_lean_wire"
+        phase_train_lean_wire(torch, data, mem_cfg_path)
         phase = "train"
         attention.reset_launch_counts()
-        eng = phase_train(torch, pkg, data, cfg_path)
+        eng, train_rec = phase_train(torch, pkg, data, cfg_path)
         snap = _stream_state(eng)
         phase = "eval"
         unique = phase_eval(torch, eng)
         frozen_counts = dict(attention.launch_counts)
         phase = "eval_unique_vs_chunked"
-        phase_eval_unique_vs_chunked(torch, eng, snap, unique, phase)
+        host_arms = {"": (train_rec, unique, phase_eval_unique_vs_chunked(
+            torch, eng, snap, unique, phase))}
         del eng, snap
         phase = "memory_train"
         attention.reset_launch_counts()
-        eng = phase_memory_train(torch, pkg, data, mem_cfg_path)
+        eng, train_rec = phase_memory_train(torch, pkg, data, mem_cfg_path)
         snap = _stream_state(eng)
         phase = "memory_eval"
         unique = phase_eval(torch, eng, "memory_eval")
         memory_counts = dict(attention.launch_counts)
         phase = "memory_eval_unique_vs_chunked"
-        phase_eval_unique_vs_chunked(torch, eng, snap, unique, phase)
+        host_arms["memory_"] = (train_rec, unique,
+                                phase_eval_unique_vs_chunked(
+                                    torch, eng, snap, unique, phase))
         del eng, snap
+        # the two device-side transports beside the host-pack arms above:
+        # each path's launches counted from 0
+        transport_counts, transport_want = {}, {}
+        for path, cfg_p, host in (("device_cache", cfg_path, ""),
+                                  ("device_cache_memory", mem_cfg_path,
+                                   "memory_")):
+            phase = f"{path}_train"
+            attention.reset_launch_counts()
+            eng = phase_transport_train(torch, pkg, data, cfg_p, phase,
+                                        host_arms[host][0],
+                                        device_cache=True)
+            steps = eng.last_epoch_trace["batches"]
+            phase = f"{path}_eval"
+            dc_eval = phase_device_cache_eval(torch, eng, phase,
+                                              *host_arms[host][1:])
+            transport_counts[path] = dict(attention.launch_counts)
+            transport_want[path] = dict(
+                attention_fwd=0, attention_bwd=0, attention_fwd_drop=steps,
+                attention_bwd_drop=steps,
+                attention_fwd_infer=dc_eval["embed_chunks"])
+            del eng
+        for path, cfg_p, host in (("train_lean", cfg_path, ""),
+                                  ("train_lean_memory", mem_cfg_path,
+                                   "memory_")):
+            phase = f"{path}_train"
+            attention.reset_launch_counts()
+            eng = phase_transport_train(torch, pkg, data, cfg_p, phase,
+                                        host_arms[host][0],
+                                        wire_train_lean=True)
+            steps = eng.last_epoch_trace["batches"]
+            transport_counts[path] = dict(attention.launch_counts)
+            transport_want[path] = dict(
+                attention_fwd=0, attention_bwd=0, attention_fwd_drop=steps,
+                attention_bwd_drop=steps, attention_fwd_infer=0)
+            del eng
+        torch.cuda.empty_cache()
         phase = "layer2_train"
         attention.reset_launch_counts()
-        eng = phase_memory_train(torch, pkg, data, layer2_cfg_path, phase)
+        eng, _ = phase_memory_train(torch, pkg, data, layer2_cfg_path, phase)
         layer2_steps = eng.last_epoch_trace["batches"]
         phase = "layer2_eval"
         layer2 = phase_eval(torch, eng, phase, closed_by="gnn.layer>1")
@@ -1618,22 +2176,23 @@ def main() -> int:
         del eng
         phase = "vector_train"
         attention.reset_launch_counts()
-        eng = phase_memory_train(torch, pkg, data, mem_cfg_path, phase,
-                                 steps=VECTOR_STEPS, message_mode="vector")
+        eng, _ = phase_memory_train(torch, pkg, data, mem_cfg_path, phase,
+                                    steps=VECTOR_STEPS,
+                                    message_mode="vector")
         phase = "vector_eval"
         phase_eval(torch, eng, phase)
         vector_counts = dict(attention.launch_counts)
         del eng
         phase = "jodie_train"
         attention.reset_launch_counts()
-        eng = phase_memory_train(torch, pkg, data, jodie_cfg_path, phase)
+        eng, _ = phase_memory_train(torch, pkg, data, jodie_cfg_path, phase)
         phase = "jodie_eval"
         phase_eval(torch, eng, phase)
         jodie_counts = dict(attention.launch_counts)
         del eng
         phase = "dyrep_train"
         attention.reset_launch_counts()
-        eng = phase_memory_train(torch, pkg, data, dyrep_cfg_path, phase)
+        eng, _ = phase_memory_train(torch, pkg, data, dyrep_cfg_path, phase)
         dyrep_steps = eng.last_epoch_trace["batches"]
         snap = _stream_state(eng)
         phase = "dyrep_eval"
@@ -1647,6 +2206,9 @@ def main() -> int:
         phase_decoders(torch)
         phase = "eval_low_dedup"
         phase_eval_low_dedup(torch, pkg, cfg_path)
+        phase = "device_cache_large_n"
+        phase_device_cache_large_n(torch, pkg, cfg_path)
+        torch.cuda.empty_cache()
         phase = "pad_mask"
         phase_pad_mask(torch, pkg)
         torch.cuda.empty_cache()
@@ -1658,7 +2220,8 @@ def main() -> int:
         phase = "counters"
         paths = dict(frozen=frozen_counts, memory=memory_counts,
                      layer2=layer2_counts, vector=vector_counts,
-                     jodie=jodie_counts, dyrep=dyrep_counts, fit=fit_counts)
+                     jodie=jodie_counts, dyrep=dyrep_counts, fit=fit_counts,
+                     **transport_counts)
         counts = {k: sum(p[k] for p in paths.values())
                   for k in attention.KERNELS}
         # two attention layers: each kernel twice a step, twice a chunk
@@ -1674,6 +2237,7 @@ def main() -> int:
                           attention_fwd_infer=dyrep["embed_chunks"])
         emit(dict(phase="counters", **paths, layer2_expected=layer2_want,
                   dyrep_expected=dyrep_want, fit_expected=fit_want,
+                  **{f"{k}_expected": v for k, v in transport_want.items()},
                   launches=counts))
         idle = [k for k, v in frozen_counts.items() if v == 0]
         idle += [f"{k} (memory path)" for k in MEMORY_PATH_KERNELS
@@ -1684,15 +2248,16 @@ def main() -> int:
             raise AssertionError(f"kernels never launched on the main path: "
                                  f"{idle}")
         if (layer2_counts != layer2_want or dyrep_counts != dyrep_want
-                or fit_counts != fit_want
+                or fit_counts != fit_want or transport_counts != transport_want
                 or any(vector_counts.values())
                 or any(jodie_counts.values())):
             raise AssertionError(
                 f"layer-2 path launches {layer2_counts}, expected "
                 f"{layer2_want}; DyRep path {dyrep_counts}, expected "
                 f"{dyrep_want}; fit path {fit_counts}, expected "
-                f"{fit_want}; vector path {vector_counts}; JODIE path "
-                f"{jodie_counts}")
+                f"{fit_want}; device-side transports {transport_counts}, "
+                f"expected {transport_want}; vector path {vector_counts}; "
+                f"JODIE path {jodie_counts}")
         phase = "profile"
         phase_profile(torch, pkg, data, cfg_path, "frozen")
         phase_profile(torch, pkg, data, mem_cfg_path, "memory")
@@ -1700,6 +2265,10 @@ def main() -> int:
                       protocol="column_chunk")
         phase_profile(torch, pkg, data, jodie_cfg_path, "jodie")
         phase_profile(torch, pkg, data, dyrep_cfg_path, "dyrep")
+        phase_profile(torch, pkg, data, cfg_path, "device_cache",
+                      protocol="column_chunk", device_cache=True)
+        phase_profile(torch, pkg, data, cfg_path, "train_lean", evals=False,
+                      wire_train_lean=True)
     except Exception as e:            # report the phase, then fail
         traceback.print_exc()
         emit(dict(phase=phase, ok=False, error=f"{type(e).__name__}: {e}"))

@@ -9,7 +9,18 @@ expansion of the same wire.
   * ``expand_wire`` of the plain WirePack and of the CompactWire;
   * ``_mw_from_slots`` in both encodings (u8 for S ≤ 254, i32 above);
   * a stream of more than 65,535 nodes, where every index field ships as
-    i32."""
+    i32;
+  * the train-lean wire (``train_lean_dedup``): the host post-pass equals
+    JAX's, its expansion equals the full-Δt wire's, the numpy pack's and
+    JAX's expansion exactly, over batches whose clocks the device never
+    saw, with duplicate timestamps and colliding negatives (JAX
+    tests/test_wire.py::test_dedup_wire_train_lean_exact); both guards
+    send the full wire back; the native packer's ``clock_snapshot`` is a
+    copy; an Engine with ``wire_train_lean`` trains and evaluates exactly
+    as one without it, and a batch the packer hands back crosses as a
+    compact wire with its Δt."""
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,8 +37,8 @@ from tgb_tgn_dgl_tpu_torch.ops.wire import (CompactWire, DedupWire, WirePack,
                                             _mw_from_slots, compact_wire,
                                             eval_lean_dedup, expand_any,
                                             expand_dedup, expand_wire,
-                                            nb_bucket_of, wire_nbytes,
-                                            wire_to_device)
+                                            nb_bucket_of, train_lean_dedup,
+                                            wire_nbytes, wire_to_device)
 
 K = 5
 
@@ -205,11 +216,130 @@ def test_wire_to_device_keeps_none_and_widens_uint16():
 
 
 def test_jax_and_port_wires_have_the_same_fields():
-    """The port's wire types keep the JAX names; the JAX package's extra
-    field belongs to its unported train-lean wire."""
-    extra = {"WirePack": set(), "CompactWire": set(),
-             "DedupWire": {"clock0"}}
+    """The port's wire types keep the JAX names and order, the train-lean
+    wire's ``clock0`` included."""
     for cls in (WirePack, CompactWire, DedupWire):
-        theirs = getattr(jwire, cls.__name__)._fields
-        assert tuple(f for f in theirs if f not in extra[cls.__name__]) \
-            == cls._fields
+        assert getattr(jwire, cls.__name__)._fields == cls._fields
+
+
+# ------------------------------------------------------------ train-lean
+def _train_lean_stream(S, seed, N=60, B=150, E=600):
+    """JAX tests/test_wire.py::test_dedup_wire_train_lean_exact's stream:
+    few nodes (endpoints and negatives collide in a block), 10 equal
+    timestamps; yields (args, to_device of the numpy pack, the native
+    dedup wire and its P, the clocks before the batch, blocks, times)."""
+    r = np.random.default_rng(seed)
+    cfg = PackerConfig(num_neighbors=K, batch_size=B, max_intra_block=8,
+                       mailbox_size=S)
+    plain, native = StreamPacker(N, cfg), NativeStreamPacker(N, cfg)
+    t_all = np.sort(r.uniform(0, 1e6, E)).astype(np.float32)
+    t_all[100:110] = t_all[100]
+    src_all = r.integers(0, N, E).astype(np.int32)
+    dst_all = r.integers(0, N, E).astype(np.int32)
+    blocks_all = dependency_aware_batch(src_all, dst_all, B)
+    times = torch.from_numpy(t_all)
+    for lo in range(0, E, B):
+        rows = np.arange(lo, lo + B)
+        args = (src_all[rows], dst_all[rows], t_all[rows], rows,
+                blocks_all[rows], r.integers(0, N, B).astype(np.int32))
+        clock = native.clock_snapshot()
+        np.testing.assert_array_equal(clock, plain.clock)
+        want = to_device(plain.pack(*args), "cpu")
+        yield (want, native.pack_wire_dedup(*args), clock,
+               blocks_all[rows], times)
+
+
+@pytest.mark.parametrize("S,seed", [(1, 3), (2, 7)], ids=["s1", "s2"])
+def test_train_lean_wire_exact(S, seed):
+    N, nbb = 60, 64
+    for bi, (want, (w, P), clock, blocks, times) in enumerate(
+            _train_lean_stream(S, seed)):
+        lean = train_lean_dedup(w, blocks, nbb, clock)
+        assert lean.cache_dt is None and lean.self_dt is None
+        assert lean.ia_dt is None and lean.clock0.shape == w.uniq_nid.shape
+        assert wire_nbytes(lean) < wire_nbytes(w)
+        jl = jwire.train_lean_dedup(w, blocks, nbb, clock)
+        for f in DedupWire._fields:
+            a, b = getattr(lean, f), getattr(jl, f)
+            assert (a is None) == (b is None), f
+            if a is not None:
+                assert a.dtype == np.asarray(b).dtype, f
+                np.testing.assert_array_equal(a, np.asarray(b), err_msg=f)
+        got = expand_dedup(wire_to_device(lean, "cpu"), K, P, N, times)
+        full = expand_dedup(wire_to_device(w, "cpu"), K, P, N)
+        _assert_pack_equal(got, want, f"train-lean batch {bi}")
+        _assert_pack_equal(got, full, f"train-lean batch {bi} vs full Δt")
+        _assert_equals_jax(
+            got, jwire.expand_dedup(_jax_wire(jl), K, P, N,
+                                    ev_times=jnp.asarray(times.numpy())),
+            f"train-lean batch {bi}")
+    assert bi > 0 and clock.any()      # later batches read real clocks
+
+
+def test_train_lean_guards_send_the_full_wire():
+    """A block bucket with 3·B·nb_bucket ≥ 2^31 (the int32 order key
+    would wrap) or a block count over the id field: the wire comes back
+    with its Δt."""
+    (want, (w, P), clock, blocks, times), = itertools.islice(
+        _train_lean_stream(1, 11, E=150), 1)
+    B = w.ev_t.shape[0]
+    huge = 2 ** 31 // (3 * B) + 1
+    assert train_lean_dedup(w, blocks, huge, clock) is w
+    too_many = np.arange(len(blocks)) % 40       # 40 blocks in bucket 16
+    assert train_lean_dedup(w, too_many, 16, clock) is w
+    assert jwire.train_lean_dedup(w, too_many, 16, clock) is w
+    assert train_lean_dedup(w, blocks, 64, clock).clock0 is not None
+
+
+def test_clock_snapshot_is_a_copy():
+    cfg = PackerConfig(num_neighbors=K, batch_size=16, max_intra_block=8)
+    pk = NativeStreamPacker(40, cfg)
+    r = np.random.default_rng(2)
+    snap = pk.clock_snapshot()
+    src, dst = (r.integers(0, 40, 16).astype(np.int32) for _ in range(2))
+    t = np.sort(r.uniform(1, 10, 16)).astype(np.float32)
+    pk.pack_wire_dedup(src, dst, t, np.arange(16),
+                       dependency_aware_batch(src, dst, 16),
+                       r.integers(0, 40, 16).astype(np.int32))
+    assert not snap.any() and pk.clock_snapshot().any()
+    np.testing.assert_array_equal(pk.clock_snapshot(), pk.snapshot()[3])
+
+
+@pytest.mark.parametrize("hands_back", [False, True],
+                         ids=["dedup", "handed_back"])
+def test_engine_train_lean_matches_full_wire(hands_back):
+    """The same engine with and without ``wire_train_lean``: equal losses,
+    parameters and val MRR, every train wire train-lean (or, when the
+    packer hands each batch back, a compact wire with its Δt)."""
+    from test_torch_engine import RAW, _HandsBack, _data, _with_train
+    from tgb_tgn_dgl_tpu_torch.engine.train import Engine
+    from tgb_tgn_dgl_tpu_torch.utils.config import parse_config_dict
+
+    out = {}
+    for tl in (False, True):
+        eng = Engine(_data(pdata.synthetic), parse_config_dict(
+            _with_train(RAW, wire_train_lean=tl)), device="cpu")
+        if hands_back:
+            eng.packer = _HandsBack(eng.packer)
+        kinds = []
+        expand = eng._expand
+
+        def spy(wire, iw, expand=expand, kinds=kinds):
+            kinds.append((type(wire).__name__,
+                          getattr(wire, "clock0", None) is not None))
+            return expand(wire, iw)
+
+        eng._expand = spy
+        stats = eng.train_epoch()
+        train_kinds = kinds[:]
+        # a handed-back eval wire cannot run the slot-unique protocol
+        val = (eng._evaluate_chunked if hands_back else eng.evaluate)("val")
+        out[tl] = (stats, val, eng.model.state_dict(),
+                   train_kinds, eng.train_lean)
+    (s0, v0, p0, k0, l0), (s1, v1, p1, k1, l1) = out[False], out[True]
+    assert not l0 and l1
+    assert s0 == s1 and v0 == v1
+    assert all(torch.equal(p0[k], p1[k]) for k in p0)
+    want = ("CompactWire", False) if hands_back else ("DedupWire", True)
+    assert set(k1) == {want} and len(k1) == 6
+    assert set(k0) == {(want[0], False)}

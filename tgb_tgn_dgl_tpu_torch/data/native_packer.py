@@ -10,15 +10,18 @@ host loops in C++, plus the wire emitters the Engine ships to the device
 in-edges at ``layers > 1``), ``pack_wire_dedup`` and the one-deep
 pack-ahead ``pack_wire_dedup_submit``/``pack_wire_dedup_fetch``, which
 runs the next batch on the library's own worker thread (one layer only,
-as in the JAX package).  Every output is bit-equal to the numpy packer
+as in the JAX package), and ``clock_snapshot``, the (N,) clocks alone,
+which the train-lean wire (ops/wire.py::train_lean_dedup) reads before
+each batch.  Every output is bit-equal to the numpy packer
 (tests/test_torch_native_packer.py, tests/test_torch_multilayer.py).
 
 The library is built with g++ at the first ``NativeStreamPacker``
 (ops/_build.py::host_library); a build that fails raises, and nothing
 falls back to the numpy packer (the JAX package's ``make_stream_packer``
 does; the port has no such factory).  Bound here are only the entry points
-this package calls; the source's others (the device-cache emitter,
-row-level state surgery, the clock-only read) are not used yet.
+this package calls, the device-cache emitter ``packer_pack_fill_lean``
+(data/lean_packer.py) among them; the source's row-level state surgery is
+not used yet.
 """
 from __future__ import annotations
 
@@ -49,6 +52,7 @@ def _lib() -> ctypes.CDLL:
     lib.packer_reset.argtypes = [vp]
     lib.packer_get_state.argtypes = [vp, i32p, i64p, f32p, f32p, i64p,
                                      c.POINTER(c.c_int64)]
+    lib.packer_get_clock.argtypes = [vp, f32p]
     lib.packer_set_state.argtypes = [vp, i32p, i64p, f32p, f32p, i64p,
                                      c.c_int64]
     lib.packer_insert.argtypes = [vp, i32p, i32p, f32p, i64p, c.c_int64]
@@ -87,6 +91,16 @@ def _lib() -> ctypes.CDLL:
         f32p, f32p, c.c_int64, f32p,                 # dt outputs
         i32p, i32p, i32p, i32p,                      # intra ranges
         i32p]                                        # mw_slot
+    lib.packer_pack_fill_lean.argtypes = [
+        vp, c.c_int64, c.c_int64, c.c_int32,
+        c.c_int32,                                   # write_mail
+        i32p, i32p, f32p, i32p, u8p, i32p,          # events
+        i32p, i32p, i32p,                            # slot maps
+        i32p, i32p,                                  # roots nid/blk
+        c.c_int64, i32p, i32p, i32p,                 # intra COO
+        i32p, i32p, i32p, f32p, i32p,                # write plan
+        c.c_int64, i32p, i32p, f32p, u8p,            # clock writes
+        c.c_int64, f32p, f32p]                       # wipe
     lib.packer_dedup_submit.argtypes = [
         vp, i32p, i32p, f32p, i64p, i32p, i32p,
         c.c_int64, c.c_int64, c.c_int32, c.c_int64,
@@ -112,22 +126,20 @@ def _enc(a: np.ndarray, maxval: int) -> np.ndarray:
     return a if a.dtype == np.int32 else a.astype(np.int32)
 
 
-class NativeStreamPacker:
-    """API-compatible with StreamPacker; the state lives in C++."""
+class PackerHandle:
+    """A handle of the packer library with what both of its emitters keep
+    on the host: the sticky shape buckets per (M, eval_mode), as
+    StreamPacker keeps them, and the read-back of the handle's state.
+    ``NativeStreamPacker`` and the device-cache emitter
+    (data/lean_packer.py) build on it."""
 
     def __init__(self, num_nodes: int, cfg: PackerConfig):
-        if cfg.strategy != "recent":
-            raise NotImplementedError(
-                f"the native packer runs the 'recent' strategy only (got "
-                f"strategy={cfg.strategy!r})")
         self._lib = _lib()
         self.N = num_nodes
         self.cfg = cfg
         self._h = self._lib.packer_new(num_nodes, cfg.num_neighbors,
                                        cfg.mailbox_size)
-        # sticky shape buckets per (M, eval_mode), as StreamPacker keeps
         self._sticky: dict = {}
-        self._async_meta = None
 
     def _sticky_bucket(self, key, name: str, value: int) -> int:
         cur = self._sticky.setdefault(key, {})
@@ -140,7 +152,17 @@ class NativeStreamPacker:
             self._lib.packer_free(h)    # waits for the worker, joins it
             self._h = None
 
-    # ------------------------------------------------------------- state
+    def bucket_state(self) -> dict:
+        """A copy of the sticky shape buckets, {(M, eval_mode): {name:
+        size}}: the padded sizes the next packs start from.  A checkpoint
+        keeps them, so that a resumed run pads its tensors as the run it
+        continues does (on the GPU a GEMM's summation order follows its
+        shape)."""
+        return {k: dict(v) for k, v in self._sticky.items()}
+
+    def load_bucket_state(self, buckets) -> None:
+        self._sticky = {tuple(k): dict(v) for k, v in buckets.items()}
+
     def reset_cache(self) -> None:
         self._lib.packer_reset(self._h)
 
@@ -156,20 +178,55 @@ class NativeStreamPacker:
                                    ctypes.byref(cur))
         return nbr, eid, t, clock, cur.value, ptr
 
+    def _begin(self, src, dst, t, ev_idx, blocks, neg, eval_mode):
+        """packer_pack_begin on contiguous copies of the batch; returns its
+        sizes (total roots, exact P, U, nnz, unique cache rows, -, 4-aligned
+        prefix-list size), M and the sticky-bucket key."""
+        Braw = len(src)
+        neg2d = np.ascontiguousarray(
+            np.asarray(neg, np.int32).reshape(Braw, -1))
+        M = neg2d.shape[1]
+        cap_p = (-1 if self.cfg.max_intra_block is None
+                 else self.cfg.max_intra_block)
+        sizes = np.zeros(7, np.int64)
+        self._lib.packer_pack_begin(
+            self._h, np.ascontiguousarray(src, np.int32),
+            np.ascontiguousarray(dst, np.int32),
+            np.ascontiguousarray(t, np.float32),
+            np.ascontiguousarray(ev_idx, np.int64),
+            np.ascontiguousarray(blocks, np.int32), neg2d, Braw, M,
+            int(eval_mode), cap_p, sizes)
+        return [int(s) for s in sizes], M, (M, bool(eval_mode))
+
+    def _intra_width(self, skey, p_exact: int) -> int:
+        cap = self.cfg.max_intra_block
+        return (cap if cap is not None
+                else self._sticky_bucket(skey, "P", _bucket_p(p_exact)))
+
+
+class NativeStreamPacker(PackerHandle):
+    """API-compatible with StreamPacker; the state lives in C++."""
+
+    def __init__(self, num_nodes: int, cfg: PackerConfig):
+        if cfg.strategy != "recent":
+            raise NotImplementedError(
+                f"the native packer runs the 'recent' strategy only (got "
+                f"strategy={cfg.strategy!r})")
+        super().__init__(num_nodes, cfg)
+        self._async_meta = None
+
+    def clock_snapshot(self) -> np.ndarray:
+        """A fresh copy of the (N,) clocks through the clock-only entry
+        point: the train-lean wire reads them before every batch, and
+        ``snapshot`` would copy the whole (N, K) cache as well.  It waits
+        for the worker, so the caller takes it with no job pending."""
+        clock = np.empty(self.N, np.float32)
+        self._lib.packer_get_clock(self._h, clock)
+        return clock
+
     @property
     def cur_e_id(self):
         return self._get_state()[4]
-
-    def bucket_state(self) -> dict:
-        """A copy of the sticky shape buckets, {(M, eval_mode): {name:
-        size}}: the padded sizes the next packs start from.  A checkpoint
-        keeps them, so that a resumed run pads its tensors as the run it
-        continues does (on the GPU a GEMM's summation order follows its
-        shape)."""
-        return {k: dict(v) for k, v in self._sticky.items()}
-
-    def load_bucket_state(self, buckets) -> None:
-        self._sticky = {tuple(k): dict(v) for k, v in buckets.items()}
 
     def snapshot(self):
         """(cache_nbr, cache_eid, cache_t, clock, cur_e_id, mail_ptr), as
@@ -198,31 +255,6 @@ class NativeStreamPacker:
             np.ascontiguousarray(e_id, np.int64), b)
 
     # -------------------------------------------------------------- pack
-    def _begin(self, src, dst, t, ev_idx, blocks, neg, eval_mode):
-        """packer_pack_begin on contiguous copies of the batch; returns its
-        sizes (total roots, exact P, U, nnz, unique cache rows, -, 4-aligned
-        prefix-list size), M and the sticky-bucket key."""
-        Braw = len(src)
-        neg2d = np.ascontiguousarray(
-            np.asarray(neg, np.int32).reshape(Braw, -1))
-        M = neg2d.shape[1]
-        cap_p = (-1 if self.cfg.max_intra_block is None
-                 else self.cfg.max_intra_block)
-        sizes = np.zeros(7, np.int64)
-        self._lib.packer_pack_begin(
-            self._h, np.ascontiguousarray(src, np.int32),
-            np.ascontiguousarray(dst, np.int32),
-            np.ascontiguousarray(t, np.float32),
-            np.ascontiguousarray(ev_idx, np.int64),
-            np.ascontiguousarray(blocks, np.int32), neg2d, Braw, M,
-            int(eval_mode), cap_p, sizes)
-        return [int(s) for s in sizes], M, (M, bool(eval_mode))
-
-    def _intra_width(self, skey, p_exact: int) -> int:
-        cap = self.cfg.max_intra_block
-        return (cap if cap is not None
-                else self._sticky_bucket(skey, "P", _bucket_p(p_exact)))
-
     def _root_buckets(self, skey, total_roots: int, U: int):
         lo = self.cfg.root_bucket_lo
         R = self._sticky_bucket(skey, "R", _bucket_pow2(max(total_roots, 1),

@@ -16,6 +16,25 @@ its three model families (``gnn.arch``, models/factory.py):
 JODIE and DyRep always run with their memory, whatever
 ``train.frozen_memory`` says.
 
+Two opt-in transports keep part of the stream state on the device, as in
+the JAX Engine (both off by default):
+
+  * device-cache mode (``train.device_cache``; ops/lean_wire.py): TGN at
+    one layer keeps the neighbor cache and the clocks on the card
+    (``sstate``, a ``StreamDeviceState``).  The lean packer
+    (data/lean_packer.py) packs each batch and chunk on this thread, when
+    it is reached, into an event-only ``LeanWire``; ``expand_lean``
+    rebuilds the DevicePack from it and the resident state, and
+    ``advance_stream`` closes the batch (at column-chunk eval, on the
+    last chunk only).  Eval then takes the column-chunk protocol (gate
+    reason ``device_cache mode``).  Another configuration with the knob
+    says why once and runs the host packer (``device_cache`` is False);
+  * the train-lean wire (``train.wire_train_lean``; one layer, the host
+    packer): each train dedup wire ships the pre-batch clock rows of its
+    unique table in place of its Δt fields (``train_lean_dedup``); the
+    packer's clocks are read between the fetch of one batch and the
+    submit of the next.
+
 Pipeline per batch, as the JAX Engine runs it by default: the native
 packer (data/native_packer.py, csrc/packer.cpp) packs the batch one
 batch (at column-chunk eval one negative chunk) ahead on its own C++
@@ -95,6 +114,7 @@ import torch
 
 from ..data.dataset import TemporalData
 from ..data.dependency import dependency_aware_batch
+from ..data.lean_packer import NativeLeanPacker
 from ..data.native_packer import NativeStreamPacker
 from ..data.packer import PackerConfig
 from ..models.factory import arch_embed, arch_predict, init_arch
@@ -104,8 +124,12 @@ from ..models.tgnn import TGNNConfig, bce_loss
 from ..models.variants import (EagerMemoryConfig, dyrep_messages,
                                eager_apply_mail, eager_commit,
                                init_eager_memory, init_eager_memory_state)
+from ..ops.lean_wire import (LeanWire, advance_stream, clone_stream_state,
+                             expand_lean, init_stream_device_state,
+                             reset_stream_cache)
+from ..ops.neighbor_cache import NeighborCacheState
 from ..ops.wire import (DedupWire, compact_wire, eval_lean_dedup, expand_any,
-                        nb_bucket_of, wire_to_device)
+                        nb_bucket_of, train_lean_dedup, wire_to_device)
 from ..utils.config import FrameworkConfig
 from ..utils.metrics import MetricsLogger
 from .checkpoint import (CHECKPOINT_SUFFIX, EarlyStopMonitor, load_state,
@@ -225,9 +249,7 @@ class Engine:
                 self.model.memory = init_memory(self.mem_cfg, init_gen)
             self.mem_state = self._fresh_memory_state()
         self.model = self.model.to(self.device)
-        # the native packer; its library builds here at first use and a
-        # failed build raises (data/native_packer.py)
-        self.packer = NativeStreamPacker(data.num_nodes, PackerConfig(
+        pk_cfg = PackerConfig(
             num_neighbors=config.sampling.num_neighbors,
             batch_size=tr.batch_size,
             max_intra_block=tr.max_intra_block,
@@ -235,7 +257,31 @@ class Engine:
             strategy=config.sampling.strategy,
             seed=tr.seed,
             layers=g.layer,
-        ))
+        )
+        # device-cache mode: the gate of tgb_tgn_dgl_tpu
+        # engine/train.py:181-185 (the strategy is always 'recent' here)
+        self.device_cache = False
+        if tr.device_cache:
+            off = ("gnn.arch!=transformer_attention"
+                   if g.arch != "transformer_attention" else
+                   "gnn.layer>1" if g.layer != 1 else None)
+            self.device_cache = off is None
+            if off:
+                print(f"[train] device-cache mode off ({off}); using the "
+                      f"host packer", flush=True)
+        # the train-lean wire rides on the dedup wire: one layer, host
+        # packer
+        self.train_lean = (tr.wire_train_lean and not self.device_cache
+                           and g.layer == 1)
+        self.sstate = None
+        # the packer's library builds here at first use and a failed build
+        # raises (data/native_packer.py)
+        if self.device_cache:
+            self.packer = NativeLeanPacker(data.num_nodes, pk_cfg)
+            self.sstate = init_stream_device_state(
+                data.num_nodes, config.sampling.num_neighbors, self.device)
+        else:
+            self.packer = NativeStreamPacker(data.num_nodes, pk_cfg)
         # counterpart of optax.adam(lr) (b1 0.9, b2 0.999, eps 1e-8)
         self.optimizer = torch.optim.Adam(self.model.parameters(), lr=tr.lr,
                                           betas=(0.9, 0.999), eps=1e-8)
@@ -257,6 +303,7 @@ class Engine:
             "test": np.nonzero(data.test_mask)[0],
         }
         self._blocks: Dict[str, np.ndarray] = {}
+        self._nb_buckets: Dict[str, int] = {}
         self.last_epoch_trace: Dict[str, float] = {}
         self.last_eval_trace: Dict[str, object] = {}
         self._eval_gate_logged: set = set()
@@ -283,15 +330,25 @@ class Engine:
 
     # -------------------------------------------------------------- wires
     def _pack_wire(self, args, kw):
-        """One batch packed on this thread as a WirePack, narrowed to a
-        CompactWire where the wire allows it (JAX ``_maybe_compact``).
-        Returns (wire, intra_width)."""
+        """One batch packed on this thread: in device-cache mode a
+        LeanWire, else a WirePack narrowed to a CompactWire where the wire
+        allows it (JAX ``_maybe_compact``).  Returns (wire,
+        intra_width)."""
         wire, iw = self.packer.pack_wire(*args, **kw)
+        if self.device_cache:
+            return wire, iw
         cw = compact_wire(wire, self.data.num_nodes, iw,
                           self.config.memory.mailbox_size)
         return (wire if cw is None else cw), iw
 
-    def _packed(self, jobs, tm):
+    def _train_nb_bucket(self, split: str = "train") -> int:
+        """The block-count bucket of ``split``'s train-lean clock grid,
+        fixed per split (tgb_tgn_dgl_tpu engine/train.py:1525-1533)."""
+        if split not in self._nb_buckets:
+            self._nb_buckets[split] = nb_bucket_of(self.blocks_for(split))
+        return self._nb_buckets[split]
+
+    def _packed(self, jobs, tm, nb_bucket: int = 0):
         """Yields (meta, (wire, intra_width)) for each job (meta, args, kw)
         of ``jobs``, in order.  The native packer runs one job ahead on its
         C++ worker (JAX ``_prefetch_pipelined`` and
@@ -303,10 +360,19 @@ class Engine:
         wait for the worker and the read of its buffers).
 
         At gnn.layer > 1 the worker cannot take the job (its dedup wire
-        carries no rslot; JAX ``sync_pack``, engine/train.py:1546-1597):
-        each job is packed on this thread when it is reached, and
-        ``tm["fetch_s"]`` takes that whole pack."""
-        if self.config.gnn.layer > 1:
+        carries no rslot; JAX ``sync_pack``, engine/train.py:1546-1597),
+        and in device-cache mode the lean packer has no worker (JAX packs
+        lean wires on its main thread, :1494-1498, :1660-1663): each job
+        is packed on this thread when it is reached, and
+        ``tm["fetch_s"]`` takes that whole pack.
+
+        With ``nb_bucket`` (train jobs with the train-lean wire) each dedup
+        wire goes train-lean: the packer's clocks are read after the
+        previous job's fetch, whose pack advanced them, and before this
+        job's submit hands it to the worker (JAX :1544-1563).  A job
+        handed back (P > 255) is packed on this thread as a compact wire,
+        with its Δt."""
+        if self.config.gnn.layer > 1 or self.device_cache:
             for job in jobs:
                 t0 = time.perf_counter()
                 out = self._pack_wire(job[1], job[2])
@@ -314,30 +380,54 @@ class Engine:
                 yield job[0], out
             return
 
-        def fetch(job):
+        def fetch(job, clock):
             t0 = time.perf_counter()
             out = self.packer.pack_wire_dedup_fetch()
             tm["fetch_s"] += time.perf_counter() - t0
             # None: P > 255 and the state untouched, so pack the same
             # batch on this thread
-            return self._pack_wire(job[1], job[2]) if out is None else out
+            if out is None:
+                return self._pack_wire(job[1], job[2])
+            if clock is not None:
+                out = (train_lean_dedup(out[0], job[1][4], nb_bucket,
+                                        clock), out[1])
+            return out
 
         pend = None
         for job in jobs:
-            ready = None if pend is None else fetch(pend)
+            ready = None if pend is None else fetch(*pend)
+            # the pre-batch clocks: no job is pending on the worker here
+            clock = self.packer.clock_snapshot() if nb_bucket else None
             # refused only for an empty batch or one over batch_size,
             # which _iter_batches never yields
             accepted = self.packer.pack_wire_dedup_submit(*job[1], **job[2])
             assert accepted, "the packer refused a batch"
             if ready is not None:
-                yield pend[0], ready
-            pend = job
+                yield pend[0][0], ready
+            pend = (job, clock)
         if pend is not None:
-            yield pend[0], fetch(pend)
+            yield pend[0][0], fetch(*pend)
 
     def _expand(self, wire, intra_width):
+        """The DevicePack of a device wire (in device-cache mode a train
+        batch's LeanWire)."""
+        if self.device_cache:
+            return self._expand_lean(wire, intra_width, eval_mode=False)
         return expand_any(wire, self.config.sampling.num_neighbors,
                           intra_width, self.data.num_nodes, self.times)
+
+    def _expand_lean(self, wire: LeanWire, intra_width, eval_mode: bool):
+        """The DevicePack of a LeanWire from the resident stream state;
+        ``eval_mode`` picks the clock rule."""
+        return expand_lean(
+            wire, self.sstate, self.config.sampling.num_neighbors,
+            intra_width, self.data.num_nodes, eval_mode=eval_mode,
+            batch_size=self.config.train.batch_size)[0]
+
+    def _advance(self, wire, eval_mode: bool) -> None:
+        """Device-cache mode: close the batch on the resident state."""
+        self.sstate = advance_stream(self.sstate, wire, self.data.num_nodes,
+                                     eval_mode=eval_mode)
 
     def _train_jobs(self):
         """The train split's batches, or its first ``sanity_batches``."""
@@ -460,8 +550,11 @@ class Engine:
         copy's enqueue), its parts ``fetch_s`` in the packer's fetch (at
         gnn.layer > 1 the whole pack, on this thread) and ``copy_s`` in
         ``wire_to_device``, and ``disp_s``, the time it spent dispatching
-        the expansion and the train step."""
+        the expansion and the train step (in device-cache mode the
+        advance of the resident state too)."""
         self.packer.reset_cache()
+        if self.device_cache:
+            self.sstate = reset_stream_cache(self.sstate)
         if self.use_memory:
             # memory and cache reset together (pyg_epoch_utils.py:11-16)
             self.mem_state = self._fresh_memory_state()
@@ -470,7 +563,9 @@ class Engine:
         pack_s = disp_s = 0.0
         tm = {"fetch_s": 0.0, "copy_s": 0.0}
         t0 = time.perf_counter()
-        wires = self._packed(self._train_jobs(), tm)
+        wires = self._packed(self._train_jobs(), tm,
+                             self._train_nb_bucket() if self.train_lean
+                             else 0)
         while True:
             t1 = time.perf_counter()
             nxt = next(wires, None)
@@ -484,6 +579,8 @@ class Engine:
             tm["copy_s"] += t2 - tc
             pack_s += t2 - t1
             _, acc = self._train_step(self._expand(wire, iw), acc)
+            if self.device_cache:
+                self._advance(wire, eval_mode=False)
             disp_s += time.perf_counter() - t2
             nb += 1
             self._step += 1
@@ -535,13 +632,16 @@ class Engine:
         """The block-id bucket of ``split``'s eval-lean wires where the
         slot-unique protocol can run, else None (tgb_tgn_dgl_tpu
         engine/train.py:693-752).  Only the checks that can fail in the
-        port are kept: the dedup wire is always on at one layer, there is
-        no device-cache mode, and slot-unique is taken whatever the dedup,
+        port are kept: the dedup wire is always on at one layer outside
+        device-cache mode, and slot-unique is taken whatever the dedup,
         with no knob to turn it off."""
         blocks = self.blocks_for(split)
         cap = self.config.train.max_intra_block
         t = self.data.t
         for ok, reason in (
+                # the lean wire is packed a chunk at a time against the
+                # device's cache (tgb_tgn_dgl_tpu engine/train.py:699)
+                (not self.device_cache, "device_cache mode"),
                 # the eval-lean dedup wire carries no rslot, and a layer-2
                 # root's sources may fall in another embed chunk
                 (self.config.gnn.layer == 1, "gnn.layer>1"),
@@ -723,7 +823,9 @@ class Engine:
         """The column-chunk pass (tgb_tgn_dgl_tpu engine/train.py:1599-1627):
         each batch's fixed negatives go through the model in chunks of
         ``eval_neg_chunk_size``; ranks add up across chunks, and only the
-        LAST chunk of a batch inserts the batch into the stream state.
+        LAST chunk of a batch inserts the batch into the stream state (in
+        device-cache mode, the advance of the resident state:
+        tgb_tgn_dgl_tpu engine/train.py:1130-1152).
         ``evaluate`` takes it where the slot-unique gate closes; the tests
         and chip_smoke.py call it to hold the two protocols together."""
         fixed = self._fixed_negatives(split)
@@ -747,7 +849,8 @@ class Engine:
             if first:
                 counts["opt"] = counts["pes"] = torch.zeros(
                     B, dtype=torch.int64, device=self.device)
-            pack = self._expand(wire, iw)
+            pack = (self._expand_lean(wire, iw, eval_mode=True)
+                    if self.device_cache else self._expand(wire, iw))
             mem_rows = lu_rows = None
             if self.use_memory:
                 # applied mail is cleared by the commit, so applying and
@@ -757,6 +860,8 @@ class Engine:
             embed = self._embed(pack, mem_rows, lu_rows, train=False)
             if self.use_memory:
                 self._commit(pack, mem_rows, lu_rows, embed)
+            if last and self.device_cache:
+                self._advance(wire, eval_mode=True)
             counts["opt"], counts["pes"] = self._score_counts(
                 embed, pack, counts["opt"], counts["pes"], mask_c)
             n["embed_chunks"] += 1
@@ -881,11 +986,15 @@ class Engine:
     # ---------------------------------------------------- stream snapshots
     def snapshot_stream(self):
         """A copy of the whole stream state: the packer's (cache, clocks,
-        mail ring pointers, event cursor) and the memory's (tgb_tgn_dgl_tpu
-        engine/train.py:2084-2097).  Taken around a val pass it keeps the
-        streaming eval's changes out of training (the reference's unwired
-        backup_memory/restore_memory, model_utils.py:290-308)."""
+        mail ring pointers, event cursor; in device-cache mode its ring
+        pointers and the device's ``sstate``) and the memory's
+        (tgb_tgn_dgl_tpu engine/train.py:2084-2104).  Taken around a val
+        pass it keeps the streaming eval's changes out of training (the
+        reference's unwired backup_memory/restore_memory,
+        model_utils.py:290-308)."""
         snap = {"packer": self.packer.snapshot()}
+        if self.device_cache:
+            snap["sstate"] = clone_stream_state(self.sstate)
         if self.use_memory:
             snap["mem_state"] = _clone_state(self.mem_state)
         return snap
@@ -894,6 +1003,8 @@ class Engine:
         """Restore a ``snapshot_stream`` copy; the snapshot stays valid
         (the memory is cloned again: later commits write in place)."""
         self.packer.restore(snap["packer"])
+        if self.device_cache:
+            self.sstate = clone_stream_state(snap["sstate"])
         if self.use_memory:
             self.mem_state = _clone_state(snap["mem_state"])
 
@@ -912,7 +1023,9 @@ class Engine:
         dropout generator's state and its device type, the negative
         sampler's PCG64 state (hi/lo words as int64), the cursors, the
         packer's state with its sticky shape buckets (which the JAX
-        checkpoint leaves out) and the memory's."""
+        checkpoint leaves out) and the memory's.  In device-cache mode the
+        packer's state is its ring pointers, and the device's ``sstate``
+        is kept beside it (:2130-2133), the lean packer's buckets too."""
         opt = self.optimizer.state_dict()
         # Adam makes its moments at a parameter's first step; until then
         # they are written as the zeros it starts from, so that every
@@ -921,7 +1034,6 @@ class Engine:
             opt["state"].setdefault(i, {
                 "step": torch.tensor(0.0), "exp_avg": torch.zeros_like(p),
                 "exp_avg_sq": torch.zeros_like(p)})
-        nbr, eid, t, clock, cur, ptr = self.packer.snapshot()
         st = {
             "params": self.model.state_dict(),
             "optimizer": opt,
@@ -931,18 +1043,24 @@ class Engine:
                 rng_state_to_array(self.neg_sampler.rng).view(np.int64)),
             "step": self._step,
             "epoch": self._epoch,
-            "packer": {
-                "cache_nbr": torch.from_numpy(nbr),
-                "cache_eid": torch.from_numpy(eid),
-                "cache_t": torch.from_numpy(t),
-                "clock": torch.from_numpy(clock),
-                "cur_e_id": int(cur),
-                "mail_ptr": torch.from_numpy(ptr),
-                # the padded sizes the next packs start from: a resumed
-                # run pads (and so sums, on the GPU) as this run would
-                "buckets": self.packer.bucket_state(),
-            },
+            # the padded sizes the next packs start from: a resumed run
+            # pads (and so sums, on the GPU) as this run would
+            "packer": {"buckets": self.packer.bucket_state()},
         }
+        if self.device_cache:
+            (ptr,) = self.packer.snapshot()
+            st["packer"]["mail_ptr"] = torch.from_numpy(ptr)
+            st["sstate"] = dict(zip(self.sstate.cache._fields,
+                                    self.sstate.cache),
+                                clock=self.sstate.clock)
+        else:
+            nbr, eid, t, clock, cur, ptr = self.packer.snapshot()
+            st["packer"].update(
+                cache_nbr=torch.from_numpy(nbr),
+                cache_eid=torch.from_numpy(eid),
+                cache_t=torch.from_numpy(t),
+                clock=torch.from_numpy(clock), cur_e_id=int(cur),
+                mail_ptr=torch.from_numpy(ptr))
         if self.use_memory:
             st["mem_state"] = dict(zip(self.mem_state._fields,
                                        self.mem_state))
@@ -981,9 +1099,18 @@ class Engine:
         self._step = int(st["step"])
         self._epoch = int(st["epoch"])
         pk = st["packer"]
-        nbr, eid, t, clock, ptr = (pk[k].cpu().numpy() for k in (
-            "cache_nbr", "cache_eid", "cache_t", "clock", "mail_ptr"))
-        self.packer.restore((nbr, eid, t, clock, int(pk["cur_e_id"]), ptr))
+        if self.device_cache:
+            self.packer.restore((pk["mail_ptr"].cpu().numpy(),))
+            ss = st["sstate"]
+            self.sstate = type(self.sstate)(
+                cache=NeighborCacheState(**{f: ss[f] for f in
+                                            NeighborCacheState._fields}),
+                clock=ss["clock"])
+        else:
+            nbr, eid, t, clock, ptr = (pk[k].cpu().numpy() for k in (
+                "cache_nbr", "cache_eid", "cache_t", "clock", "mail_ptr"))
+            self.packer.restore((nbr, eid, t, clock, int(pk["cur_e_id"]),
+                                 ptr))
         self.packer.load_bucket_state(pk["buckets"])
         if self.use_memory:
             self.mem_state = type(self.mem_state)(**st["mem_state"])

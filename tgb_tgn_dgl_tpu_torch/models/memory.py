@@ -181,11 +181,16 @@ def commit(cfg: MemoryModelConfig, state: MemoryState,
     """Scatter the updated rows, clear the read set's mail, write the new
     mail; in place, returns ``state``.
 
-    The targets in ``uniq_nid`` and the (node, slot) pairs of the write
-    plan (``mw_*``, W entries, invalid ones at node N) are unique by host
-    construction except the trash row N, whose writes may collide and
-    race; it is re-zeroed after every scatter.  Clearing comes before
-    writing: the write-plan nodes are in the read set."""
+    A node may stand in ``uniq_nid`` more than once (device-cache mode's
+    read set, ops/lean_wire.py::expand_lean, repeats a node as a root and
+    in every cache cell that holds it); each copy then carries the same
+    row, since apply_mail computed it from the same state, so the order
+    of the duplicate writes cannot matter.  The (node, slot) pairs of the
+    write plan (``mw_*``, W entries, invalid ones at node N) are unique by
+    host construction.  Only the trash row N takes writes of different
+    values, which may race; it is re-zeroed after every scatter.
+    Clearing comes before writing: the write-plan nodes are in the read
+    set."""
     n = cfg.num_nodes
     nid = uniq_nid.long()
     wn, ws = mw_node.long(), mw_slot.long()

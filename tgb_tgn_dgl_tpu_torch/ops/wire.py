@@ -19,23 +19,25 @@ unchanged.  Three formats, as in the JAX package:
     once per unique root node, the intra COO as per-slot windows into one
     node-major entry table, and at eval (``eval_lean_dedup``) no Δt at all:
     the device derives them from its event-time table and per-block
-    metadata.
+    metadata.  With ``train.wire_train_lean`` a train wire drops its Δt
+    too (``train_lean_dedup``): it carries the pre-batch clock rows of its
+    unique table, and the device replays the batch's clock writes.
 
 Host side (numpy): ``compact_wire``, ``nb_bucket_of``,
-``_lean_block_meta``, ``eval_lean_dedup``.  Device side (torch):
-``wire_to_device`` (one staging buffer, one pinned non-blocking copy for
-a wire and the arrays that travel with it; uint16 fields widen to int32
-right after the copy), ``uncompact_wire``,
-``_mw_from_slots``, ``expand_dedup``, ``expand_wire``, ``expand_any``.  Every shape of the
+``_lean_block_meta``, ``eval_lean_dedup``, ``train_lean_dedup``.  Device
+side (torch): ``wire_to_device`` (one staging buffer, one pinned
+non-blocking copy for a wire and the arrays that travel with it; uint16
+fields widen to int32 right after the copy), ``uncompact_wire``,
+``_mw_from_slots``, ``expand_dedup``, ``expand_wire``, ``expand_any``.
+Every shape of the
 expansion comes from host ints (the wire's array shapes and the intra
 width), so it never waits for the device.  Every expansion is bit-equal
 to ``data/packer.py::to_device`` of the numpy pack
 (tests/test_torch_wire.py).
 
-Not ported yet: the train-lean wire (``train_lean_dedup``, the JAX
-package's ``clock0`` field) and the blob wire of the fused steps
-(``BlobWire``, ``blob_stack``, ``unblob_one``); neither is on by default
-there.
+Not ported yet: the blob wire of the fused steps (``BlobWire``,
+``blob_stack``, ``unblob_one``).  Device-cache mode's lean wire is in
+ops/lean_wire.py.
 """
 from __future__ import annotations
 
@@ -159,6 +161,9 @@ class DedupWire(NamedTuple):
     blk_max: Optional[Array] = None     # (NBb,) f32 per-block wipe value
     ev_src_loc: Optional[Array] = None  # (B,) i32 endpoint uniq-locs
     ev_dst_loc: Optional[Array] = None  # (B,) i32
+    # --- train-lean extension (train_lean_dedup); blk_max then holds
+    # zeros of the block bucket's width
+    clock0: Optional[Array] = None      # (Ub,) f32 pre-batch clock rows
 
 
 def wire_nbytes(wire) -> int:
@@ -330,6 +335,44 @@ def eval_lean_dedup(wire: DedupWire, blocks, nb_bucket: int) -> DedupWire:
                          ev_dst_loc=ev_dst_loc)
 
 
+def train_lean_dedup(wire: DedupWire, blocks, nb_bucket: int,
+                     clock_before: np.ndarray) -> DedupWire:
+    """Host post-pass for TRAIN dedup wires: drop the three Δt fields
+    (cache_dt, self_dt, ia_dt) and attach what expand_dedup needs to
+    derive them bit-exactly on the device: ``clock0``, the pre-batch
+    clocks of the unique table's rows (``clock_before`` is the packer's
+    (N,) clock snapshot taken before this batch was packed), and the
+    block ids of eval_lean_dedup (u8 or u16 by ``nb_bucket``, the split's
+    block-count bucket).  ``blk_max`` holds zeros: it carries the block
+    bucket's width, and its zeros tell this wire from an eval-lean one
+    on the device.  Returns the wire unchanged where the device could not
+    derive the Δt exactly: a block count over the id field, or 3·B·
+    nb_bucket at or over 2^31 (each clock write is ordered by the int32
+    key blk·3B + role·B + row + 1)."""
+    braw = len(blocks)
+    if braw == 0:
+        return wire
+    neg_slot = np.asarray(wire.ev_neg_slot)
+    if neg_slot.ndim != 1:
+        return wire          # train wires carry one negative per event
+    B = np.asarray(wire.ev_t).shape[0]
+    if 3 * B * nb_bucket >= 2 ** 31:
+        return wire
+    meta = _lean_block_meta(wire, blocks, nb_bucket)
+    if meta is None:
+        return wire
+    ev_blk, root_blk, _, _ = meta
+    uniq = np.asarray(wire.uniq_nid, np.int64)
+    N = clock_before.shape[0]
+    clock0 = np.where(uniq >= N, 0.0,
+                      np.asarray(clock_before, np.float32)[
+                          np.minimum(uniq, N - 1)]).astype(np.float32)
+    return wire._replace(cache_dt=None, self_dt=None, ia_dt=None,
+                         root_blk=root_blk, ev_blk=ev_blk,
+                         blk_max=np.zeros(nb_bucket, np.float32),
+                         clock0=clock0)
+
+
 # ---------------------------------------------------------------- device
 _TORCH_DTYPE = {np.dtype(np.bool_): torch.bool,
                 np.dtype(np.uint8): torch.uint8,
@@ -354,8 +397,11 @@ def wire_to_device(wire, device, *extra):
     copy (torch indexes with no uint16 tensor).  Returns the device wire,
     or (wire, *extra tensors) when ``extra`` is given."""
     device = torch.device(device)
-    arrays = [None if a is None else np.ascontiguousarray(a)
+    # np.asarray keeps a 0-d field (the lean wire's wipe_final) 0-d
+    arrays = [None if a is None else np.asarray(a)
               for a in (*wire, *extra)]
+    arrays = [a if a is None or a.flags.c_contiguous
+              else np.ascontiguousarray(a) for a in arrays]
     offsets, size = [], 0
     for a in arrays:
         offsets.append(size)
@@ -471,8 +517,20 @@ def _grid(cache_loc, cache_feat, cache_dt, cache_kind, root_loc,
 
 def expand_dedup(wire: DedupWire, num_neighbors: int, intra_width: int,
                  num_nodes: int, ev_times=None) -> DevicePack:
-    """The full DevicePack from a DedupWire, with gathers (and, at eval,
-    one scatter-max).  Bit-equal to ``to_device`` of the numpy pack.
+    """The full DevicePack from a DedupWire, with gathers (and, on a lean
+    wire, one scatter-max).  Bit-equal to ``to_device`` of the numpy pack.
+
+    TRAIN-LEAN wires (``wire.clock0`` set, from train_lean_dedup) carry no
+    Δt either.  The packer's train clock (data/packer.py, pass 2) writes
+    per block neg, then dst, then src, the last write winning, and a root
+    slot reads the clock after its own block.  Each write gets the order
+    key blk·3B + role·B + row + 1 (0 = never written): the largest key in
+    a (node, block) cell is the block's last write, and since the block
+    leads the key, a running max along the blocks (``torch.cummax``)
+    gives the last write in blocks ≤ b.  One ``scatter_reduce_`` "amax"
+    fills the (Ub, NBb) key grid (max does not depend on the order of the
+    writes); the written value is ``ev_t[(key - 1) mod B]``, and a cell
+    never written reads the pre-batch clock ``clock0``.
 
     EVAL-LEAN wires (``wire.cache_dt is None``, from eval_lean_dedup)
     carry no Δt: every eval Δt is ``edge time − clock_b[node]``, where the
@@ -499,7 +557,30 @@ def expand_dedup(wire: DedupWire, num_neighbors: int, intra_width: int,
     root_valid = root_loc != pad_loc
     uniq_nid = _i32(wire.uniq_nid)
 
-    if lean_dt:
+    if lean_dt and wire.clock0 is not None:
+        NBb = wire.blk_max.shape[0]
+        root_blk = wire.root_blk.to(torch.int64)            # (R,)
+        ev_blk = wire.ev_blk.to(torch.int32)                # (B,)
+        Bq = ev_src.shape[0]
+        rows = torch.arange(Bq, dtype=torch.int32, device=ev_blk.device)
+        locs = torch.cat([root_loc[_i32(wire.ev_neg_slot).long()],
+                          root_loc[_i32(wire.ev_pos_slot).long()],
+                          root_loc[_i32(wire.ev_src_slot).long()]])
+        keys = torch.cat([torch.where(wire.ev_valid,
+                                      ev_blk * (3 * Bq) + role * Bq + rows + 1,
+                                      0) for role in range(3)])
+        cell = (locs.to(torch.int64) * NBb
+                + torch.cat([ev_blk, ev_blk, ev_blk]).to(torch.int64))
+        grid = torch.zeros(Ub * NBb, dtype=torch.int32, device=keys.device)
+        grid.scatter_reduce_(0, cell, keys, "amax")
+        last = torch.cummax(grid.view(Ub, NBb), dim=1).values.reshape(-1)
+
+        def clock_at(loc, blk):
+            loc = loc.to(torch.int64)
+            pg = last[loc * NBb + blk]
+            return torch.where(pg > 0, wire.ev_t[((pg - 1) % Bq).long()],
+                               wire.clock0[loc])
+    elif lean_dt:
         NBb = wire.blk_max.shape[0]
         root_blk = wire.root_blk.to(torch.int64)            # (R,)
         ev_blk = wire.ev_blk.to(torch.int64)                # (B,)

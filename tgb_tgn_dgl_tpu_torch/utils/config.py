@@ -3,14 +3,18 @@
 The port's copy of tgb_tgn_dgl_tpu/utils/config.py.  It keeps the schema
 fields (so the same ``configs/TGN.yml``, ``configs/TGN-memory.yml``,
 ``configs/TGN-2layer.yml``, ``configs/JODIE.yml`` and ``configs/DyRep.yml``
-parse in both packages) and the train knobs the port reads.  The JAX
-package's transport and dispatch knobs (``wire_compact``, ``wire_dedup``,
-the train-lean and blob wires, fused steps, device-cache mode,
-``eval_slot_unique``, rng_impl, use_pallas) have no counterpart here: the
-port always ships the dedup wire, falling back to the compact wire where
-a batch needs it, and evaluates by the slot-unique protocol wherever its
-structural gate opens (engine/train.py); a config that sets one of those
-knobs is refused as an unknown key rather than ignored.
+parse in both packages) and the train knobs the port reads, among them
+the JAX package's two transports that keep stream state on the device,
+with its defaults (off): ``train.device_cache`` (the neighbor cache and
+clocks on the card, the lean wire; ops/lean_wire.py) and
+``train.wire_train_lean`` (train dedup wires without their Δt fields;
+ops/wire.py::train_lean_dedup).  The JAX package's other transport and
+dispatch knobs (``wire_compact``, ``wire_dedup``, the blob wire, fused
+steps, ``eval_slot_unique``, rng_impl, use_pallas) have no counterpart
+here: the port always ships the dedup wire, falling back to the compact
+wire where a batch needs it, and evaluates by the slot-unique protocol
+wherever its structural gate opens (engine/train.py); a config that sets
+one of those knobs is refused as an unknown key rather than ignored.
 
 Knobs the schema carries but the port does not run yet (``train.remat``,
 'uniform' sampling, bfloat16) are rejected by ``Engine`` with
@@ -118,6 +122,18 @@ class TrainConfig:
     # memory-mode step (the JAX package's jax.checkpoint knob).  Not
     # ported: Engine refuses True.
     remat: bool = False
+    # The train-lean wire (ops/wire.py::train_lean_dedup): train dedup
+    # wires ship the pre-batch clock rows of their unique table and the
+    # block ids in place of the three f32 Δt fields, and the device
+    # derives every Δt bit-exactly (one scatter-max and one cummax).
+    wire_train_lean: bool = False
+    # Device-cache mode (ops/lean_wire.py): the recency neighbor cache
+    # and the per-node clocks live on the device; the host ships an
+    # event-only lean wire.  Taken by TGN (gnn.arch
+    # 'transformer_attention') at gnn.layer 1 with the 'recent'
+    # strategy, frozen or with the mailbox memory; any other
+    # configuration runs the host packer (Engine.device_cache says which).
+    device_cache: bool = False
 
 
 @dataclass
