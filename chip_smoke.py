@@ -7,9 +7,9 @@ Drives the port (tgb_tgn_dgl_tpu_torch; nothing of JAX) on one CUDA
 device, phase by phase, one JSON line per phase:
 
   device     the card (nvidia-smi name and power limit), TF32 off, the
-             kernels built from csrc/ with nvcc and the stream packer
-             (csrc/packer.cpp) with g++ at once, the build times and the
-             g++ version
+             kernels built from csrc/ with nvcc and the host libraries
+             (csrc/packer.cpp, csrc/owned_state.cpp) with g++ at once, the
+             build times and the g++ version
   kernels    each attention kernel at the main path's shapes and at shapes
              that reach its other routes (H % 4 != 0, a long row, a
              misaligned el'), against its plain torch version on the same
@@ -17,7 +17,9 @@ device, phase by phase, one JSON line per phase:
              and from the backward kernel alone on the same a, and the
              inference forward under no_grad), with times and the
              memory/compute bound; the inference forward is timed at the
-             slot-unique embed chunk and at the column-chunk chunk
+             slot-unique embed chunk and at the column-chunk chunk, the
+             dropout pair at the train batch and at the multi-host
+             composed step's 2 x and 4 x 6,144 root slots
   reference  a tiny stream trained and evaluated (val, then test, by the
              slot-unique protocol) by the port on the GPU and on the CPU
              (plain versions) from the same weights
@@ -169,6 +171,32 @@ device, phase by phase, one JSON line per phase:
              kernels, the metrics.jsonl events; each run's launches
              (the dropout pair 56 an epoch trained, attention_fwd_infer
              once an embed chunk of its val and test passes)
+  multihost_reference
+             MultiHostEngine (parallel/mh_engine.py) at 2 hosts on the tiny
+             stream at dropout 0 (2 super-batches of 2 x 100 events, 2 tail
+             batches): frozen TGN, the memory, JODIE and DyRep, GPU against
+             CPU from the same weights (each step's loss, the parameters,
+             the memory state, the packer state exactly), and for the
+             memory and DyRep the owned exchange bit-equal to the
+             replicated one on the GPU; the dropout-0 pair once a composed
+             step (DyRep: once a range) and once a tail step
+  multihost_train
+             configs/TGN-memory.yml at full width at 2 hosts: one epoch
+             (27 super-batches, 2 tail batches; the buckets warmed first,
+             timed apart) and the slot-unique val pass with the replicated
+             and with the owned exchange from the same weights, beside the
+             serial memory_train epoch: edges/s, every last_epoch_trace
+             field, peak memory; the packer state after the epoch equal to
+             the serial Engine's
+  multihost_frozen_train, multihost_jodie_train, multihost_dyrep_train
+             configs/TGN.yml at 4 hosts (13 super-batches, 4 tail
+             batches), JODIE.yml and DyRep.yml at 2 hosts: one epoch each
+             beside the serial epoch of this call
+  multihost_host_only
+             the host work alone (train_epoch(host_only=True): range packs,
+             exchange, mail re-plan, composition) of TGN-memory.yml at 2
+             and 4 hosts, replicated against owned; host_s, the work one
+             host of such a deployment does; no kernel may launch
   counters   launches of each kernel on the frozen path (train + eval;
              all five must be > 0), on the memory path (memory_train +
              memory_eval; the dropout pair and the inference forward must
@@ -182,9 +210,14 @@ device, phase by phase, one JSON line per phase:
              val passes and its test pass), on the device-cache paths
              (TGN.yml and TGN-memory.yml: the dropout pair 56 times an
              epoch, the inference forward once a column chunk) and the
-             train-lean paths (the dropout pair 56 times an epoch), each
-             path's counts set to 0 just before it; the kernel table sums
-             them
+             train-lean paths (the dropout pair 56 times an epoch), on
+             the multi-host paths (the dropout pair once a composed step,
+             DyRep's once a range, and once a tail step: 29 for
+             TGN-memory.yml at 2 hosts with each exchange, 17 for TGN.yml
+             at 4, 56 for DyRep.yml at 2, none for JODIE; the inference
+             forward once an embed chunk of the TGN-memory.yml arms' val
+             passes), each path's counts set to 0 just before it; the
+             kernel table sums them
   profile    torch.profiler over 4 train steps and one val batch (by the
              slot-unique and by the column-chunk protocol) of a fresh
              engine, frozen, memory, JODIE and DyRep, and at gnn.layer 2
@@ -252,6 +285,8 @@ SOURCE = "tgb_tgn_dgl_tpu_torch/csrc/attention.cu"
 # with lanes that a head vector does not fill (the tree reduction)
 SHAPES = [("train", 6144, 43, 8, 0.02), ("eval", 40960, 43, 8, 0.02),
           ("eval_unique", 46812, 43, 8, 0.02),
+          ("composed", 12288, 43, 8, 0.02),
+          ("composed_n4", 24576, 43, 8, 0.02),
           ("masked", 512, 43, 8, 0.5), ("odd_kp", 1000, 17, 8, 0.0),
           ("odd_h", 999, 17, 3, 0.1), ("long_kp", 512, 200, 8, 0.1),
           ("misaligned", 1000, 200, 8, 0.1),
@@ -261,11 +296,13 @@ SHAPES = [("train", 6144, 43, 8, 0.02), ("eval", 40960, 43, 8, 0.02),
 # val pass runs (the largest chunk of a 327,680-slot table: 7 chunks of
 # 46,812; also the column-chunk protocol's 40,960-slot chunk, beside it),
 # the column chunk for the training forward, the train batch for the
-# others
+# others; the dropout pair also at the multi-host composed step's root
+# slots, N x 6,144 at N = 2 (composed) and 4 (composed_n4)
 TIMED_SHAPES = {"attention_fwd": ("eval",),
                 "attention_fwd_infer": ("eval_unique", "eval"),
-                "attention_fwd_drop": ("train",), "attention_bwd": ("train",),
-                "attention_bwd_drop": ("train",)}
+                "attention_fwd_drop": ("train", "composed", "composed_n4"),
+                "attention_bwd": ("train",),
+                "attention_bwd_drop": ("train", "composed", "composed_n4")}
 # what the memory path's train (dropout 0.2) and eval launch
 MEMORY_PATH_KERNELS = ("attention_fwd_drop", "attention_bwd_drop",
                        "attention_fwd_infer")
@@ -464,7 +501,8 @@ def phase_kernels(torch, attention):
     for name in attention.KERNELS:
         for label in TIMED_SHAPES[name]:
             r = results[name]["timed"][label]
-            emit(dict(phase="kernels", kernel=name, timed_at=r["shape"],
+            emit(dict(phase="kernels", kernel=name, label=label,
+                      timed_at=r["shape"],
                       ms=r["ms"], plain_ms=r["plain_ms"],
                       bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                       bytes=r["bytes"],
@@ -2031,6 +2069,271 @@ def phase_profile(torch, pkg, data, cfg_path, path, protocol="slot_unique",
             raise AssertionError(f"{path} {what} took {trace['protocol']}")
 
 
+# --------------------------------------------------- multi-host super-batches
+MH_TAIL_STEPS = 2              # the tiny stream's 599 train events at 2 x 100
+
+
+def _recording_mh_engine(pkg, raw, dev, exchange):
+    """A MultiHostEngine of ``raw`` at 2 hosts on the tiny stream, and the
+    list its composed steps and tail steps append their losses to."""
+    eng = pkg.MultiHostEngine(_tiny(pkg), pkg.parse_config_dict(raw),
+                              n_hosts=2, exchange=exchange, device=dev)
+    losses = []
+    composed, step = eng._composed_step, eng._train_step
+
+    def rec_composed(*args):
+        out = composed(*args)
+        losses.append(float(out[-3]))           # (…, loss, pos, neg)
+        return out
+
+    def rec(pack, acc):
+        loss, acc = step(pack, acc)
+        losses.append(float(loss))
+        return loss, acc
+
+    eng._composed_step, eng._train_step = rec_composed, rec
+    return eng, losses
+
+
+def _params_diff(torch, got, want):
+    """The largest |a - b| - TOL·|b| over two models' parameters (<= 0
+    within LOSS_TOL abs+rel) and the largest |a - b|."""
+    over = err = 0.0
+    for a, b in zip(got.model.parameters(), want.model.parameters()):
+        d = (a.detach().cpu() - b.detach().cpu()).abs()
+        err = max(err, float(d.max()))
+        over = max(over, float((d - LOSS_TOL * b.detach().cpu().abs()).max()))
+    return over, err
+
+
+def _packers_equal(a, b):
+    import numpy as np
+    return all(np.array_equal(x, y) for x, y in zip(a.packer.snapshot(),
+                                                    b.packer.snapshot()))
+
+
+def _bit_equal(torch, a, b):
+    """Two engines' parameters, memory state and packer state, bit for
+    bit."""
+    same = all(torch.equal(x, y) for x, y in zip(a.model.parameters(),
+                                                b.model.parameters()))
+    if a.use_memory:
+        same = same and all(torch.equal(x, y)
+                            for x, y in zip(a.mem_state, b.mem_state))
+    return same and _packers_equal(a, b)
+
+
+def phase_multihost_reference(torch, pkg, attention):
+    """MultiHostEngine at 2 hosts on the tiny stream at dropout 0 (2
+    super-batches and 2 tail batches), GPU against CPU from the same
+    weights, for frozen TGN, the memory, JODIE and DyRep: every step's
+    loss within LOSS_TOL, the parameters within LOSS_TOL abs+rel, the
+    memory state as memory_reference holds it, the packer state exactly;
+    the owned exchange (memory, DyRep) on the GPU bit-equal to the
+    replicated one, both run under torch.use_deterministic_algorithms: at
+    this size the memory path's default CUDA ops are not bit-reproducible
+    from run to run (a second replicated run in the default mode says
+    whether it repeats the first, ``default_rerun_bit_equal``).  The GPU's
+    replicated run launches the dropout-0 pair once a step (DyRep: once a
+    range of a super-batch and once a tail step), JODIE none."""
+    cases = (("frozen", REFERENCE_RAW, False),
+             ("memory", MEMORY_RAW, True),
+             ("jodie", _arch_raw("identity"), False),
+             ("dyrep", _arch_raw("dyrep", use_dst_emb_in_msg=True), True))
+    for name, raw, owned in cases:
+        runs = {}
+        arms = [("cuda", "replicated", False), ("cpu", "replicated", False)]
+        if owned:
+            arms += [("cuda", "replicated", "rerun"),
+                     ("cuda", "replicated", True), ("cuda", "owned", True)]
+        for dev, exchange, det in arms:
+            attention.reset_launch_counts()
+            torch.use_deterministic_algorithms(det is True, warn_only=True)
+            try:
+                eng, losses = _recording_mh_engine(pkg, raw, dev, exchange)
+                stats = eng.train_epoch()
+            finally:
+                torch.use_deterministic_algorithms(False)
+            runs[dev, exchange, det] = (eng, losses, stats,
+                                        dict(attention.launch_counts))
+        (eg, lg, sg, launches), (ec, lc, sc, _) = (
+            runs["cuda", "replicated", False],
+            runs["cpu", "replicated", False])
+        tr = eg.last_epoch_trace
+        over, perr = _params_diff(torch, eg, ec)
+        res = dict(phase="multihost_reference", config=name, n_hosts=2,
+                   super_batches=tr["super_batches"], steps=len(lg),
+                   losses_gpu=lg, losses_cpu=lc,
+                   max_loss_diff=max(abs(a - b) for a, b in zip(lg, lc)),
+                   epoch_loss_gpu=sg["loss"], epoch_loss_cpu=sc["loss"],
+                   max_param_diff=perr, loss_tol=LOSS_TOL,
+                   packer_equal=_packers_equal(eg, ec),
+                   launches_gpu=launches)
+        ok = (len(lg) == len(lc) == tr["super_batches"] + MH_TAIL_STEPS
+              and res["max_loss_diff"] <= LOSS_TOL and over <= LOSS_TOL
+              and res["packer_equal"])
+        if eg.use_memory:
+            diff, same = _state_diff(torch, eg.mem_state, ec.mem_state,
+                                     MAIL_TE_TOL)
+            res.update(diff)
+            ok = ok and same
+        if owned:
+            er, lr, sr, _ = runs["cuda", "replicated", "rerun"]
+            ed, ld, sd, _ = runs["cuda", "replicated", True]
+            eo, lo, so, _ = runs["cuda", "owned", True]
+            res.update(default_rerun_bit_equal=lr == lg and sr == sg
+                       and _bit_equal(torch, er, eg),
+                       deterministic_losses_gpu=ld, owned_losses_gpu=lo,
+                       owned_bit_equal=lo == ld and so == sd
+                       and _bit_equal(torch, eo, ed))
+            ok = ok and res["owned_bit_equal"]
+        steps = (2 * tr["super_batches"] if eg.eager_memory
+                 else tr["super_batches"]) + MH_TAIL_STEPS
+        want = dict(attention_fwd=steps, attention_bwd=steps,
+                    attention_fwd_drop=0, attention_bwd_drop=0,
+                    attention_fwd_infer=0)
+        if name == "jodie":
+            want = {k: 0 for k in want}
+        res["launches_expected"] = want
+        emit(res)
+        if not ok or launches != want:
+            raise AssertionError(f"multihost_reference {name}: GPU and CPU "
+                                 f"(or the two exchanges) disagree, or "
+                                 f"launches {launches} != {want}")
+
+
+def _mh_train_arm(torch, pkg, attention, data, cfg_path, n_hosts, exchange,
+                  evals):
+    """One MultiHostEngine epoch at full width (the buckets warmed first,
+    timed apart) and, with ``evals``, its slot-unique val pass, the
+    launches counted from 0 just before: (record, engine, packer state
+    after the epoch, launches)."""
+    import math
+    cfg = pkg.parse_config(cfg_path)
+    B = cfg.train.batch_size
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attention.reset_launch_counts()
+    eng = pkg.MultiHostEngine(data, cfg, n_hosts=n_hosts, exchange=exchange)
+    t0 = time.perf_counter()
+    eng.warm_buckets()
+    eng._warmed = True
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stats = eng.train_epoch()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    tr = eng.last_epoch_trace
+    packer = eng.packer.snapshot()
+    rec = dict(exchange=exchange, n_hosts=n_hosts, events=stats["events"],
+               loss_sum=stats["loss"], ap=stats["ap"], auc=stats["auc"],
+               seconds=seconds, edges_per_s=stats["events"] / seconds,
+               warm_s=warm_s, trace=dict(tr),
+               tail_batches=-(-(stats["events"] - n_hosts * B
+                                * tr["super_batches"]) // B),
+               train_peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+               width=dict(arch=cfg.gnn.arch, D=cfg.gnn.dim_out,
+                          H=cfg.gnn.att_head, K=cfg.sampling.num_neighbors,
+                          batch=cfg.train.batch_size,
+                          memory=eng.use_memory))
+    if not math.isfinite(stats["loss"]):
+        raise AssertionError(f"non-finite multi-host loss ({exchange})")
+    if evals:
+        mrr, vsec, vrec, peak = _val_pass(torch, eng)
+        if vrec["protocol"] != "slot_unique" or not 0.0 < mrr <= 1.0:
+            raise AssertionError(f"multi-host val pass: {vrec}, MRR {mrr}")
+        rec.update(val_mrr=mrr, val_seconds=vsec, val=vrec,
+                   val_peak_mem_gb=peak)
+    return rec, eng, packer, dict(attention.launch_counts)
+
+
+def _mh_want(rec, launches_per_step=1, embed_chunks=0):
+    """The launches a multi-host path must count: the dropout pair once a
+    composed step (``launches_per_step`` for DyRep's ranges) and once a
+    tail step, the inference forward once an embed chunk of its val
+    pass."""
+    tr = rec["trace"]
+    steps = launches_per_step * tr["super_batches"] + rec["tail_batches"]
+    return dict(attention_fwd=0, attention_bwd=0, attention_fwd_drop=steps,
+                attention_bwd_drop=steps, attention_fwd_infer=embed_chunks)
+
+
+def phase_multihost_train(torch, pkg, attention, data, cfg_path, serial_rec,
+                          serial_packer):
+    """TGN-memory.yml at full width, 2 hosts: one epoch and the
+    slot-unique val pass with the replicated and with the owned exchange
+    from the same initial weights, beside the serial Engine's epoch of
+    this call (``serial_rec``).  The packer state after each epoch must
+    equal the serial Engine's (``serial_packer``).  Returns each arm's
+    launches and expected launches."""
+    import numpy as np
+    counts, wants, arms = {}, {}, {}
+    for exchange in ("replicated", "owned"):
+        rec, eng, packer, launches = _mh_train_arm(
+            torch, pkg, attention, data, cfg_path, 2, exchange, True)
+        rec["packer_equals_serial"] = [
+            name for name, a, b in zip(
+                ("cache_nbr", "cache_eid", "cache_t", "clock", "cur_e_id",
+                 "mail_ptr"), packer, serial_packer)
+            if not np.array_equal(a, b)] == []
+        path = f"multihost_memory_{exchange}"
+        counts[path] = launches
+        wants[path] = _mh_want(rec, 1, rec["val"]["embed_chunks"])
+        arms[exchange] = rec
+        del eng
+    rep, own = arms["replicated"], arms["owned"]
+    emit(dict(phase="multihost_train", config="TGN-memory.yml",
+              serial_edges_per_s=serial_rec["edges_per_s"],
+              serial_seconds=serial_rec["seconds"], replicated=rep,
+              owned=own, owned_loss_equal=own["loss_sum"] == rep["loss_sum"],
+              owned_mrr_equal=own["val_mrr"] == rep["val_mrr"]))
+    if not (rep["packer_equals_serial"] and own["packer_equals_serial"]):
+        raise AssertionError("multihost_train: the packer state after the "
+                             "epoch is not the serial Engine's")
+    return counts, wants
+
+
+def phase_multihost_one(torch, pkg, attention, data, cfg_path, phase,
+                        n_hosts, serial_rec, per_step):
+    """One multi-host train epoch of a config at full width (replicated
+    exchange) beside the serial Engine's epoch of this call; returns its
+    launches and expected launches."""
+    rec, eng, _, launches = _mh_train_arm(torch, pkg, attention, data,
+                                          cfg_path, n_hosts, "replicated",
+                                          False)
+    emit(dict(phase=phase, serial_edges_per_s=serial_rec["edges_per_s"],
+              serial_seconds=serial_rec["seconds"], **rec))
+    return launches, _mh_want(rec, per_step)
+
+
+def phase_multihost_host_only(torch, pkg, attention, data, cfg_path):
+    """The host work of a multi-host epoch alone (host_only: range packs,
+    exchange, re-plan, composition; no device step) with TGN-memory.yml
+    at 2 and 4 hosts, replicated against owned: each arm's trace, host_s
+    the work one host of such a deployment would do.  No kernel may
+    launch."""
+    for n_hosts in (2, 4):
+        arms = {}
+        for exchange in ("replicated", "owned"):
+            cfg = pkg.parse_config(cfg_path)
+            eng = pkg.MultiHostEngine(data, cfg, n_hosts=n_hosts,
+                                      exchange=exchange)
+            eng.warm_buckets()
+            eng._warmed = True
+            attention.reset_launch_counts()
+            stats = eng.train_epoch(host_only=True)
+            if any(attention.launch_counts.values()) or eng._step:
+                raise AssertionError(f"host_only launched "
+                                     f"{attention.launch_counts}")
+            arms[exchange] = dict(events=stats["events"],
+                                  **eng.last_epoch_trace)
+            del eng
+        emit(dict(phase="multihost_host_only", config="TGN-memory.yml",
+                  n_hosts=n_hosts, **arms,
+                  owned_over_replicated_host_s=arms["owned"]["host_s"]
+                  / arms["replicated"]["host_s"]))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2046,9 +2349,11 @@ def main() -> int:
     from tgb_tgn_dgl_tpu_torch.data.dataset import synthetic
     from tgb_tgn_dgl_tpu_torch.engine.train import Engine
     from tgb_tgn_dgl_tpu_torch.ops import _build, attention
+    from tgb_tgn_dgl_tpu_torch.parallel.mh_engine import MultiHostEngine
     from tgb_tgn_dgl_tpu_torch.utils.config import (parse_config,
                                                     parse_config_dict)
     pkg = SimpleNamespace(synthetic=synthetic, Engine=Engine,
+                          MultiHostEngine=MultiHostEngine,
                           parse_config=parse_config,
                           parse_config_dict=parse_config_dict)
     phase = "device"
@@ -2057,18 +2362,20 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         t0 = time.perf_counter()
-        # g++ for the packer runs beside nvcc for the kernels
-        with ThreadPoolExecutor(1) as pool:
-            host = pool.submit(_build.build_host, "packer")
+        # g++ for the host libraries runs beside nvcc for the kernels
+        with ThreadPoolExecutor(2) as pool:
+            hosts = {name: pool.submit(_build.build_host, name)
+                     for name in _build.host_sources()}
             report = _build.build()
-            host = host.result()
+            hosts = {name: f.result() for name, f in hosts.items()}
         emit(dict(phase="device", kind=torch.cuda.get_device_name(0),
                   count=torch.cuda.device_count(), nvidia_smi=smi,
                   torch=torch.__version__, cuda=torch.version.cuda,
                   tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
                   tf32_cudnn=torch.backends.cudnn.allow_tf32,
                   build_s=time.perf_counter() - t0,
-                  packer_build_s=host["seconds"],
+                  packer_build_s=hosts["packer"]["seconds"],
+                  owned_state_build_s=hosts["owned_state"]["seconds"],
                   cxx=_build.compiler_version(),
                   build={k: dict(seconds=v["seconds"],
                                  ptxas=[l for l in v["log"].splitlines()
@@ -2092,6 +2399,8 @@ def main() -> int:
         phase_device_cache_reference(torch, pkg)
         phase = "train_lean_reference"
         phase_train_lean_reference(torch, pkg)
+        phase = "multihost_reference"
+        phase_multihost_reference(torch, pkg, attention)
         phase = "wire"
         data = synthetic("tgbl-wiki")
         cfgs = os.path.join(root, "tgb_tgn_dgl_tpu_torch", "configs")
@@ -2129,6 +2438,8 @@ def main() -> int:
         host_arms["memory_"] = (train_rec, unique,
                                 phase_eval_unique_vs_chunked(
                                     torch, eng, snap, unique, phase))
+        # the serial packer state after the epoch, for multihost_train
+        serial_memory_packer = snap[0]
         del eng, snap
         # the two device-side transports beside the host-pack arms above:
         # each path's launches counted from 0
@@ -2185,14 +2496,16 @@ def main() -> int:
         del eng
         phase = "jodie_train"
         attention.reset_launch_counts()
-        eng, _ = phase_memory_train(torch, pkg, data, jodie_cfg_path, phase)
+        eng, jodie_rec = phase_memory_train(torch, pkg, data, jodie_cfg_path,
+                                            phase)
         phase = "jodie_eval"
         phase_eval(torch, eng, phase)
         jodie_counts = dict(attention.launch_counts)
         del eng
         phase = "dyrep_train"
         attention.reset_launch_counts()
-        eng, _ = phase_memory_train(torch, pkg, data, dyrep_cfg_path, phase)
+        eng, dyrep_rec = phase_memory_train(torch, pkg, data, dyrep_cfg_path,
+                                            phase)
         dyrep_steps = eng.last_epoch_trace["batches"]
         snap = _stream_state(eng)
         phase = "dyrep_eval"
@@ -2217,11 +2530,30 @@ def main() -> int:
             phase_fit_reference(torch, pkg, tmp)
             phase = "fit"
             fit_counts, fit_want = phase_fit(torch, root, tmp)
+        torch.cuda.empty_cache()
+        # the multi-host paths, each path's counts from 0 (in the phases)
+        phase = "multihost_train"
+        mh_counts, mh_want = phase_multihost_train(
+            torch, pkg, attention, data, mem_cfg_path, host_arms["memory_"][0],
+            serial_memory_packer)
+        for path, cfg_p, n_hosts, serial_rec, per_step in (
+                ("multihost_frozen", cfg_path, 4, host_arms[""][0], 1),
+                ("multihost_jodie", jodie_cfg_path, 2, jodie_rec, 0),
+                ("multihost_dyrep", dyrep_cfg_path, 2, dyrep_rec, 2)):
+            phase = f"{path}_train"
+            mh_counts[path], mh_want[path] = phase_multihost_one(
+                torch, pkg, attention, data, cfg_p, phase, n_hosts,
+                serial_rec, per_step)
+        # JODIE has no attention
+        mh_want["multihost_jodie"] = dict.fromkeys(attention.KERNELS, 0)
+        phase = "multihost_host_only"
+        phase_multihost_host_only(torch, pkg, attention, data, mem_cfg_path)
+        torch.cuda.empty_cache()
         phase = "counters"
         paths = dict(frozen=frozen_counts, memory=memory_counts,
                      layer2=layer2_counts, vector=vector_counts,
                      jodie=jodie_counts, dyrep=dyrep_counts, fit=fit_counts,
-                     **transport_counts)
+                     **transport_counts, **mh_counts)
         counts = {k: sum(p[k] for p in paths.values())
                   for k in attention.KERNELS}
         # two attention layers: each kernel twice a step, twice a chunk
@@ -2238,17 +2570,24 @@ def main() -> int:
         emit(dict(phase="counters", **paths, layer2_expected=layer2_want,
                   dyrep_expected=dyrep_want, fit_expected=fit_want,
                   **{f"{k}_expected": v for k, v in transport_want.items()},
+                  **{f"{k}_expected": v for k, v in mh_want.items()},
                   launches=counts))
         idle = [k for k, v in frozen_counts.items() if v == 0]
         idle += [f"{k} (memory path)" for k in MEMORY_PATH_KERNELS
                  if memory_counts[k] == 0]
         idle += [f"{k} (layer-2 path)" for k in MEMORY_PATH_KERNELS
                  if layer2_counts[k] == 0]
+        # the multi-host paths that train with attention launch the
+        # dropout pair (and, with a val pass, the inference forward)
+        idle += [f"{k} ({path})" for path, want in mh_want.items()
+                 for k in MEMORY_PATH_KERNELS
+                 if want[k] and not mh_counts[path][k]]
         if idle:
             raise AssertionError(f"kernels never launched on the main path: "
                                  f"{idle}")
         if (layer2_counts != layer2_want or dyrep_counts != dyrep_want
                 or fit_counts != fit_want or transport_counts != transport_want
+                or mh_counts != mh_want
                 or any(vector_counts.values())
                 or any(jodie_counts.values())):
             raise AssertionError(
@@ -2256,7 +2595,8 @@ def main() -> int:
                 f"{layer2_want}; DyRep path {dyrep_counts}, expected "
                 f"{dyrep_want}; fit path {fit_counts}, expected "
                 f"{fit_want}; device-side transports {transport_counts}, "
-                f"expected {transport_want}; vector path {vector_counts}; "
+                f"expected {transport_want}; multi-host paths {mh_counts}, "
+                f"expected {mh_want}; vector path {vector_counts}; "
                 f"JODIE path {jodie_counts}")
         phase = "profile"
         phase_profile(torch, pkg, data, cfg_path, "frozen")

@@ -10,10 +10,13 @@ batch 100, 1,000 events):
     JAX ``fit`` trains the config's ``train.epoch``;
   * ``--profile`` traces the first epoch into ``<log-dir>/profile`` with
     the same ``fit`` arguments as the others (its checkpoint is written);
+  * ``--engine multihost --hosts 2 --exchange owned`` prints the JAX
+    CLI's lines (its ``engine:`` line among them) and trains through the
+    port's ``MultiHostEngine``;
   * without a GPU and without ``--device``, ``main`` raises; ``--engine
-    sharded`` / ``multihost`` raise NotImplementedError; a dataset that is
-    not under ``--root`` falls back to the synthetic stream with
-    run_tgn.py's note on stderr;
+    sharded`` raises NotImplementedError; a dataset that is not under
+    ``--root`` falls back to the synthetic stream with run_tgn.py's note
+    on stderr;
   * on the GPU (``cuda``-marked, skipped here): without ``--device`` the
     CLI trains and tests on the card, through the kernels.
 """
@@ -160,10 +163,31 @@ def test_main_needs_a_gpu_unless_asked_for_the_cpu(files):
         main(_args(files, "--epochs", "1"))
 
 
-@pytest.mark.parametrize("engine", ["sharded", "multihost"])
+@pytest.mark.parametrize("engine", ["sharded"])
 def test_parallel_engines_are_not_ported(files, engine):
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
         main(_args(files, "--engine", engine, "--device", "cpu"))
+
+
+def test_multihost_prints_the_jax_cli_lines(files, capsys, monkeypatch):
+    """``--engine multihost --hosts 2 --exchange owned``: the JAX CLI's
+    lines, the ``engine:`` line first after the dataset's, and an epoch of
+    3 super-batches of 2 x 100 events and a tail batch of 100."""
+    flags = ["--engine", "multihost", "--hosts", "2", "--exchange", "owned",
+             "--epochs", "1", "--run-test"]
+    out = main(_args(files, *flags, "--device", "cpu"))
+    mine = capsys.readouterr().out
+    _jax_cli(_args(files, *flags, log="jax_run"), monkeypatch)
+    theirs = capsys.readouterr().out
+    assert _mask(mine) == _mask(theirs)
+    assert mine.splitlines()[1] == ("engine: multihost composed "
+                                    "super-batches, hosts=2, exchange=owned")
+    eng = out["engine"]
+    assert type(eng).__name__ == "MultiHostEngine"
+    assert eng.exchange == "owned" and eng.n_hosts == 2
+    assert eng.last_epoch_trace["super_batches"] == 3
+    assert eng.last_epoch_trace["batches"] == 7 and eng._step == 7
+    assert 0.0 < out["test"] <= 1.0
 
 
 def test_missing_dataset_falls_back_to_synthetic(files, capsys):

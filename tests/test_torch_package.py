@@ -52,7 +52,8 @@ def test_import_builds_nothing():
     code = ("import tgb_tgn_dgl_tpu_torch.engine.train, chip_smoke, "
             "tgb_tgn_dgl_tpu_torch.run_tgn, "
             "tgb_tgn_dgl_tpu_torch.engine.checkpoint, "
-            "tgb_tgn_dgl_tpu_torch.utils.metrics; "
+            "tgb_tgn_dgl_tpu_torch.utils.metrics, "
+            "tgb_tgn_dgl_tpu_torch.parallel.mh_engine; "
             "from tgb_tgn_dgl_tpu_torch.ops import _build; "
             "print(len(_build._loaded))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -65,14 +66,17 @@ def test_import_builds_nothing():
 
 
 def test_host_build_compiles_only_the_ports_sources(monkeypatch, tmp_path):
-    """The packer library builds from tgb_tgn_dgl_tpu_torch/csrc/packer.cpp
-    alone into the port's _build/, never from or into the JAX package's
-    csrc/; the compile command names no other source."""
+    """The host libraries (the packer, the owned exchange's owners) build
+    each from its own tgb_tgn_dgl_tpu_torch/csrc/<name>.cpp alone into the
+    port's _build/, never from or into the JAX package's csrc/; each
+    compile command names no other source."""
     from tgb_tgn_dgl_tpu_torch.ops import _build
-    assert _build.host_sources() == ["packer"]
-    assert _build.host_target("packer").parent == PKG / "_build"
-    lib = _build.host_library("packer")
-    assert Path(lib._name).parent == PKG / "_build"
+    names = ["owned_state", "packer"]
+    assert _build.host_sources() == names
+    for name in names:
+        assert _build.host_target(name).parent == PKG / "_build"
+        lib = _build.host_library(name)
+        assert Path(lib._name).parent == PKG / "_build"
     seen = []
 
     def fake_run(cmd, **kw):
@@ -83,8 +87,10 @@ def test_host_build_compiles_only_the_ports_sources(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD", tmp_path)
     monkeypatch.setattr(_build, "CXX", "c++-probe")
     monkeypatch.setattr(_build.subprocess, "run", fake_run)
-    _build.build_host("packer")
-    (cmd,) = seen
-    sources = [Path(a) for a in cmd if a.endswith((".cpp", ".cc", ".cu"))]
-    assert sources == [PKG / "csrc" / "packer.cpp"]
-    assert _build.host_target("packer").exists()
+    for name in names:
+        _build.build_host(name)
+        sources = [Path(a) for a in seen[-1]
+                   if a.endswith((".cpp", ".cc", ".cu"))]
+        assert sources == [PKG / "csrc" / f"{name}.cpp"]
+        assert _build.host_target(name).exists()
+    assert len(seen) == len(names)

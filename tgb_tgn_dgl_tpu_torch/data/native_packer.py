@@ -4,7 +4,12 @@ counterpart of tgb_tgn_dgl_tpu/data/native_packer.py).
 The same constructor and state API as data/packer.py::StreamPacker
 (``pack``/``insert``/``reset_cache``/``snapshot``/``restore``, which a
 checkpoint reads and writes, with the sticky shape buckets'
-``bucket_state``/``load_bucket_state``), with the
+``bucket_state``/``load_bucket_state``; the state views ``cache_nbr``,
+``cache_eid``, ``cache_t``, ``clock``, ``mail_ptr``, which return copies,
+and ``load_state``, which the multi-host exchange writes back through;
+the row-level state surgery ``set_rows``/``set_clock_rows``/
+``set_mail_rows``/``clear_rows`` of the owned exchange's scratch packs,
+parallel/owned_state.py), with the
 host loops in C++, plus the wire emitters the Engine ships to the device
 (ops/wire.py): ``pack_wire`` (with the same-block root slots of the
 in-edges at ``layers > 1``), ``pack_wire_dedup`` and the one-deep
@@ -20,8 +25,7 @@ The library is built with g++ at the first ``NativeStreamPacker``
 falls back to the numpy packer (the JAX package's ``make_stream_packer``
 does; the port has no such factory).  Bound here are only the entry points
 this package calls, the device-cache emitter ``packer_pack_fill_lean``
-(data/lean_packer.py) among them; the source's row-level state surgery is
-not used yet.
+(data/lean_packer.py) among them.
 """
 from __future__ import annotations
 
@@ -56,6 +60,11 @@ def _lib() -> ctypes.CDLL:
     lib.packer_set_state.argtypes = [vp, i32p, i64p, f32p, f32p, i64p,
                                      c.c_int64]
     lib.packer_insert.argtypes = [vp, i32p, i32p, f32p, i64p, c.c_int64]
+    lib.packer_set_rows.argtypes = [vp, i64p, c.c_int64, i32p, i64p, f32p,
+                                    f32p]
+    lib.packer_set_clock_rows.argtypes = [vp, i64p, c.c_int64, f32p]
+    lib.packer_set_mail_rows.argtypes = [vp, i64p, c.c_int64, i64p]
+    lib.packer_clear_rows.argtypes = [vp, i64p, c.c_int64, c.c_int32]
     lib.packer_pack_begin.argtypes = [
         vp, i32p, i32p, f32p, i64p, i32p, i32p,
         c.c_int64, c.c_int64, c.c_int32, c.c_int64, i64p]
@@ -224,9 +233,31 @@ class NativeStreamPacker(PackerHandle):
         self._lib.packer_get_clock(self._h, clock)
         return clock
 
+    # StreamPacker's state fields as views: each returns a copy, so a
+    # caller that changes one writes it back through load_state
+    @property
+    def cache_nbr(self) -> np.ndarray:
+        return self._get_state()[0]
+
+    @property
+    def cache_eid(self) -> np.ndarray:
+        return self._get_state()[1]
+
+    @property
+    def cache_t(self) -> np.ndarray:
+        return self._get_state()[2]
+
+    @property
+    def clock(self) -> np.ndarray:
+        return self.clock_snapshot()
+
     @property
     def cur_e_id(self):
         return self._get_state()[4]
+
+    @property
+    def mail_ptr(self) -> np.ndarray:
+        return self._get_state()[5]
 
     def snapshot(self):
         """(cache_nbr, cache_eid, cache_t, clock, cur_e_id, mail_ptr), as
@@ -235,12 +266,56 @@ class NativeStreamPacker(PackerHandle):
 
     def restore(self, snap) -> None:
         nbr, eid, t, clock, cur, ptr = snap
+        self.load_state(nbr, eid, t, clock, cur, ptr)
+
+    def load_state(self, cache_nbr, cache_eid, cache_t, clock, cur_e_id,
+                   mail_ptr) -> None:
         self._lib.packer_set_state(
-            self._h, np.ascontiguousarray(nbr, np.int32),
-            np.ascontiguousarray(eid, np.int64),
-            np.ascontiguousarray(t, np.float32),
+            self._h, np.ascontiguousarray(cache_nbr, np.int32),
+            np.ascontiguousarray(cache_eid, np.int64),
+            np.ascontiguousarray(cache_t, np.float32),
             np.ascontiguousarray(clock, np.float32),
-            np.ascontiguousarray(ptr, np.int64), int(cur))
+            np.ascontiguousarray(mail_ptr, np.int64), int(cur_e_id))
+
+    # ------------------------------------------- row-level state surgery
+    # The owned exchange's scratch pack (parallel/owned_state.py::
+    # pack_with_gathered_state) fills only the rows a pack reads, packs
+    # with insert=False and clears them again: O(rows) a pack, not O(N).
+    def rows_api_available(self) -> bool:
+        return True
+
+    def set_rows(self, nodes, nbr, eid, t, clock) -> None:
+        """Cache rows and clocks of ``nodes``."""
+        nodes = np.ascontiguousarray(nodes, np.int64)
+        if len(nodes):
+            self._lib.packer_set_rows(
+                self._h, nodes, len(nodes),
+                np.ascontiguousarray(nbr, np.int32),
+                np.ascontiguousarray(eid, np.int64),
+                np.ascontiguousarray(t, np.float32),
+                np.ascontiguousarray(clock, np.float32))
+
+    def set_clock_rows(self, nodes, clock) -> None:
+        nodes = np.ascontiguousarray(nodes, np.int64)
+        if len(nodes):
+            self._lib.packer_set_clock_rows(
+                self._h, nodes, len(nodes),
+                np.ascontiguousarray(clock, np.float32))
+
+    def set_mail_rows(self, nodes, ptr) -> None:
+        nodes = np.ascontiguousarray(nodes, np.int64)
+        if len(nodes):
+            self._lib.packer_set_mail_rows(
+                self._h, nodes, len(nodes),
+                np.ascontiguousarray(ptr, np.int64))
+
+    def clear_rows(self, nodes, zero_all_clocks: bool = False) -> None:
+        """Put the rows of ``nodes`` back to a fresh packer's (empty cache,
+        clock 0, ring pointer 0); ``zero_all_clocks`` zeroes every clock,
+        which an eval-mode pack's clock wipe has written."""
+        nodes = np.ascontiguousarray(nodes, np.int64)
+        self._lib.packer_clear_rows(self._h, nodes, len(nodes),
+                                    int(zero_all_clocks))
 
     def insert(self, src, dst, t, e_id=None) -> None:
         b = len(src)

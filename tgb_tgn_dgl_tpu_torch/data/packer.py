@@ -237,6 +237,35 @@ class StreamPacker:
                 snap[0].copy(), snap[1].copy(), snap[2].copy(),
                 snap[3].copy(), snap[4], snap[5].copy())
 
+    # --- row-level state surgery (the owned exchange's scratch packs,
+    # parallel/owned_state.py::pack_with_gathered_state); the plain
+    # version of NativeStreamPacker's
+    def rows_api_available(self) -> bool:
+        return True
+
+    def set_rows(self, nodes, nbr, eid, t, clock) -> None:
+        nodes = np.asarray(nodes, np.int64)
+        self.cache_nbr[nodes] = nbr
+        self.cache_eid[nodes] = eid
+        self.cache_t[nodes] = t
+        self.clock[nodes] = clock
+
+    def set_clock_rows(self, nodes, clock) -> None:
+        self.clock[np.asarray(nodes, np.int64)] = clock
+
+    def set_mail_rows(self, nodes, ptr) -> None:
+        self.mail_ptr[np.asarray(nodes, np.int64)] = ptr
+
+    def clear_rows(self, nodes, zero_all_clocks: bool = False) -> None:
+        nodes = np.asarray(nodes, np.int64)
+        self.cache_nbr[nodes] = 0
+        self.cache_eid[nodes] = -1
+        self.cache_t[nodes] = -1.0
+        self.clock[nodes] = 0.0
+        self.mail_ptr[nodes] = 0
+        if zero_all_clocks:
+            self.clock.fill(0.0)
+
     def insert(self, src: np.ndarray, dst: np.ndarray, t: np.ndarray,
                e_id: Optional[np.ndarray] = None) -> None:
         """Undirected recency insert, last-K by e_id per node — host mirror

@@ -94,7 +94,8 @@ passes ``device="cpu"``; there is no silent fallback to the CPU.
 ``fit`` is the epoch loop of tgb_tgn_dgl_tpu engine/train.py:2010-2081
 (a val pass every epoch, jsonl metrics, checkpoints every N epochs, early
 stopping that restores the best parameters, and the ``val_snapshot``
-protection of training from the streaming eval); ``save_checkpoint`` /
+protection of training from the streaming eval), after ``warm_buckets``
+once, as the JAX ``fit`` (:2023-2025); ``save_checkpoint`` /
 ``load_checkpoint`` hold the full state a run resumes from exactly
 (:2109-2187, engine/checkpoint.py), and the cursors ``_epoch`` and
 ``_step`` count the epochs and batches trained.
@@ -309,6 +310,7 @@ class Engine:
         self._eval_gate_logged: set = set()
         self._step = 0       # batches trained
         self._epoch = 0      # epochs trained (the resume cursor)
+        self._warmed = False  # warm_buckets has run
 
     # ------------------------------------------------------------ batches
     def blocks_for(self, split: str) -> np.ndarray:
@@ -531,13 +533,19 @@ class Engine:
             # step's parameters
             self._commit(pack, mem_rows, lu_rows, embed)
         self.optimizer.step()
-        with torch.no_grad():
-            valid = pack.ev_valid
-            neg1 = neg if neg.dim() == 1 else neg[:, 0]
-            ap, auc = ap_auc(torch.sigmoid(pos), torch.sigmoid(neg1), valid)
-            acc = acc + torch.stack([loss * valid.sum(), ap, auc,
-                                     torch.ones((), device=acc.device)])
-        return loss.detach(), acc
+        loss = loss.detach()
+        return loss, self._accumulate(acc, loss, pos.detach(), neg.detach(),
+                                      pack.ev_valid)
+
+    @staticmethod
+    @torch.no_grad()
+    def _accumulate(acc, loss, pos, neg, valid):
+        """``acc`` + [loss · n, AP, AUC, 1] of one step over its ``valid``
+        events (tgb_tgn_dgl_tpu engine/train.py:369-379)."""
+        neg1 = neg if neg.dim() == 1 else neg[:, 0]
+        ap, auc = ap_auc(torch.sigmoid(pos), torch.sigmoid(neg1), valid)
+        return acc + torch.stack([loss * valid.sum(), ap, auc,
+                                  torch.ones((), device=acc.device)])
 
     def train_epoch(self) -> Dict[str, float]:
         """One pass over the train split (or its first
@@ -906,6 +914,62 @@ class Engine:
                                 "chunks": n["embed_chunks"]}
         return float(vals[0] / max(float(vals[1]), 1.0))
 
+    # --------------------------------------------------- bucket pre-warming
+    def warm_buckets(self, n_batches: int = 96, eval_batches: int = 8) -> None:
+        """Seed the packer's sticky shape buckets with the maxima that the
+        first ``n_batches`` train batches, and the first ``eval_batches``
+        val batches under the protocol ``evaluate`` will take, reach in a
+        throwaway packer (tgb_tgn_dgl_tpu engine/train.py:1348-1462).  The
+        JAX Engine does it to compile once a profile; here it fixes the
+        padded shapes a run packs at from its first batch, so that ``fit``
+        pads (and, on the GPU, sums) as the JAX ``fit`` does, and so that
+        the ranges of a multi-host super-batch share their buckets
+        (parallel/multihost.py::concat_offset_wires).  The stream and the
+        negative sampler are untouched: the probe packs from a sampler of
+        its own with the same seed.  The merge is a monotone max, so a
+        table loaded from a checkpoint, which warming made, stays as it
+        is."""
+        d = self.data
+        probe = (NativeLeanPacker if self.device_cache
+                 else NativeStreamPacker)(d.num_nodes, self.packer.cfg)
+        # the JAX Engine's _wire_dedup: the dedup wire where the port ships
+        # it, else the wire its engine packs
+        dedup = not self.device_cache and self.config.gnn.layer == 1
+
+        def pack(args, kw):
+            if dedup and probe.pack_wire_dedup(*args, **kw) is not None:
+                return
+            probe.pack_wire(*args, **kw)
+
+        neg_probe = NegLinkSamplerDest(d.unique_dst(),
+                                       seed=self.config.train.seed)
+        for _, _, rows, blk in itertools.islice(self._iter_batches("train"),
+                                                n_batches):
+            dst = d.dst[rows]
+            pack((d.src[rows], dst, d.t[rows], rows, blk,
+                  neg_probe.sample(dst)), {})
+        if eval_batches and d.val_ns is not None:
+            fixed = self._fixed_negatives("val")
+            unique = self._eval_unique_bucket("val") is not None
+            for lo, hi, rows, blk in itertools.islice(
+                    self._iter_batches("val"), eval_batches):
+                neg, _ = fixed.query_batch(lo, hi)
+                neg2d = np.asarray(neg).reshape(len(rows), -1)
+                args = (d.src[rows], d.dst[rows], d.t[rows], rows, blk)
+                if unique:
+                    pack((*args, neg2d), dict(eval_mode=True))
+                    continue
+                M = neg2d.shape[1]
+                Mc = eval_neg_chunk_size(self.config, M, hi - lo)
+                n_chunks = -(-M // Mc)
+                for ci in range(n_chunks):
+                    last = ci == n_chunks - 1
+                    pack((*args, neg2d[:, ci * Mc:(ci + 1) * Mc]),
+                         dict(eval_mode=True, insert=last, write_mail=last))
+        for key, names in probe._sticky.items():
+            for name, val in names.items():
+                self.packer._sticky_bucket(key, name, val)
+
     # ------------------------------------------------------- the epoch loop
     def fit(self, epochs: Optional[int] = None, log=print,
             early_stop: Optional[EarlyStopMonitor] = None,
@@ -921,6 +985,9 @@ class Engine:
         Besides the JAX events, ``metrics.jsonl`` gets a ``checkpoint``
         event with the file's bytes and the save's seconds."""
         metrics = MetricsLogger(log_dir)
+        if not self._warmed:
+            self.warm_buckets()
+            self._warmed = True
         if epochs is None:
             epochs = self.config.train.epoch
         history = {"loss": [], "val": [], "train_s": [], "val_s": []}

@@ -9,7 +9,8 @@ without ``nvcc`` imports and tests the package on the CPU.  Several
 sources build in parallel, one ``nvcc`` process each (``compile_all``,
 which the A/B and sweep scripts use for other versions of a source).
 
-Each ``csrc/<name>.cpp`` is host code (the stream packer): ``g++`` with
+Each ``csrc/<name>.cpp`` is host code (the stream packer, the multi-host
+exchange's node-range owners): ``g++`` with
 ``CXX_FLAGS`` builds it at its first use (``host_library``) into
 ``_build/lib<name>-<hash>.so``, where the hash also covers the compiler
 and the CPU's identity, since ``-march=native`` code built on one CPU may

@@ -23,7 +23,7 @@ unchanged.  Three formats, as in the JAX package:
     too (``train_lean_dedup``): it carries the pre-batch clock rows of its
     unique table, and the device replays the batch's clock writes.
 
-Host side (numpy): ``compact_wire``, ``nb_bucket_of``,
+Host side (numpy): ``stack_wires``, ``compact_wire``, ``nb_bucket_of``,
 ``_lean_block_meta``, ``eval_lean_dedup``, ``train_lean_dedup``.  Device
 side (torch): ``wire_to_device`` (one staging buffer, one pinned
 non-blocking copy for a wire and the arrays that travel with it; uint16
@@ -164,6 +164,16 @@ class DedupWire(NamedTuple):
     # --- train-lean extension (train_lean_dedup); blk_max then holds
     # zeros of the block bucket's width
     clock0: Optional[Array] = None      # (Ub,) f32 pre-batch clock rows
+
+
+def stack_wires(wires):
+    """Stack same-shape wires (any wire NamedTuple) along a new leading
+    axis, ``None`` fields kept ``None``: the multi-host DyRep step ships
+    its ranges' wires as one (parallel/mh_engine.py)."""
+    cls = type(wires[0])
+    return cls(*((np.stack([getattr(w, f) for w in wires])
+                  if getattr(wires[0], f) is not None else None)
+                 for f in cls._fields))
 
 
 def wire_nbytes(wire) -> int:

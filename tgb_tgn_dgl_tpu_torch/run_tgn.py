@@ -14,9 +14,11 @@ replaced by ``--device``.  Two of run_tgn.py's faults are not copied:
 passes ``epochs=0``, which the JAX ``fit`` reads as the config's count),
 and ``--profile`` traces epoch 1 with the same ``fit`` arguments as the
 other epochs (run_tgn.py runs it without checkpoints, the val snapshot
-or early stopping).  ``--engine sharded`` and ``multihost`` are not
-ported yet, nor their flags (``--dp``, ``--state-ax``, ``--hosts``,
-``--exchange``).  When the named dataset is not under ``--root``, a
+or early stopping).  ``--engine multihost --hosts N --exchange
+replicated|owned`` trains through parallel/mh_engine.py's
+``MultiHostEngine`` on the one device; ``--engine sharded`` is not ported
+yet, nor its flags (``--dp``, ``--state-ax``).  When the named dataset is
+not under ``--root``, a
 deterministic synthetic stream with its scale statistics stands in (a
 note on stderr says so).
 """
@@ -70,8 +72,18 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                              "epoch trained into <log-dir>/profile")
     parser.add_argument("--engine", type=str, default="single",
                         choices=("single", "sharded", "multihost"),
-                        help="single: one-device Engine; sharded and "
-                             "multihost are not ported yet")
+                        help="single: one-device Engine; multihost: "
+                             "composed super-batch engine "
+                             "(parallel/mh_engine.py) on the one device; "
+                             "sharded is not ported yet")
+    parser.add_argument("--hosts", type=int, default=2,
+                        help="multihost: number of host ranges per "
+                             "super-batch")
+    parser.add_argument("--exchange", type=str, default="replicated",
+                        choices=("replicated", "owned"),
+                        help="multihost state maintenance: replicated "
+                             "(every host replays all events) or owned "
+                             "(node-range owners + boundary gathers)")
     return parser.parse_args(argv)
 
 
@@ -81,10 +93,10 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     ``--run-test``) and the checkpoint's load seconds (None without
     ``--resume``)."""
     args = parse_args(argv)
-    if args.engine != "single":
+    if args.engine == "sharded":
         raise NotImplementedError(
-            f"--engine {args.engine} is not ported yet (ROADMAP.md queue 1 "
-            f"item 8: parallel/ on torch.distributed)")
+            "--engine sharded is not ported yet (ROADMAP.md queue 1 item 3: "
+            "ShardedEngine on torch.distributed)")
 
     from .data.dataset import load_tgb, synthetic
     from .engine.checkpoint import EarlyStopMonitor
@@ -104,7 +116,14 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
 
     print(f"dataset: {data.name}  events={data.num_edges}  "
           f"nodes={data.num_nodes}  msg_dim={data.msg_dim}")
-    engine = Engine(data, config, device=args.device)
+    if args.engine == "multihost":
+        from .parallel.mh_engine import MultiHostEngine
+        print(f"engine: multihost composed super-batches, "
+              f"hosts={args.hosts}, exchange={args.exchange}")
+        engine = MultiHostEngine(data, config, n_hosts=args.hosts,
+                                 exchange=args.exchange, device=args.device)
+    else:
+        engine = Engine(data, config, device=args.device)
     epochs = args.epochs if args.epochs is not None else config.train.epoch
     load_s = None
     if args.resume:
