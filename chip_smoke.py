@@ -19,7 +19,9 @@ device, phase by phase, one JSON line per phase:
              memory/compute bound; the inference forward is timed at the
              slot-unique embed chunk and at the column-chunk chunk, the
              dropout pair at the train batch and at the multi-host
-             composed step's 2 x and 4 x 6,144 root slots
+             composed step's 2 x and 4 x 6,144 root slots, and every
+             kernel at the sharded engine's dp = 2 shares (3,072 train
+             root slots, half the slot-unique chunk)
   reference  a tiny stream trained and evaluated (val, then test, by the
              slot-unique protocol) by the port on the GPU and on the CPU
              (plain versions) from the same weights
@@ -51,6 +53,29 @@ device, phase by phase, one JSON line per phase:
              the train-lean wire (train.wire_train_lean) on the tiny
              stream, frozen and with the memory: GPU against CPU, and
              against the full-Δt wire on the GPU
+  nondeterminism
+             one train step of the tiny memory stream (the serial Engine at
+             100 events, MultiHostEngine's composed step at 2 x 100), run
+             twice in the default mode and twice under deterministic
+             algorithms: which gradients, parameters and MemoryState fields
+             differ, and, from a trace of every aten op with its inputs'
+             and outputs' checksums, which op's outputs differ on equal
+             inputs
+  sharded_reference
+             ShardedEngine (parallel/engine.py) at world size 1 on the tiny
+             stream at dropout 0, frozen, memory and JODIE: over NCCL on
+             the GPU bit-equal to the serial GPU Engine (both under
+             deterministic algorithms), and over gloo on the CPU within
+             1e-6 (a step's loss, mem); the mesh's NCCL calls in the group
+             of one
+  sharded_two_rank
+             two processes on the one card over gloo (python3 chip_smoke.py
+             --sharded-worker <spec> <rank>; NCCL refuses two ranks on one
+             device): ShardedEngine at dp = 2 x state = 1 and dp = 1 x
+             state = 2 on the tiny memory stream against the serial GPU
+             Engine (1 x 2 bit-equal, 2 x 1 within 2e-4), the
+             process-global wire's loss against the hosts' mean, and the
+             owned exchange across processes against the serial pack
   wire       the native packer and the numpy packer in lockstep on the
              tgbl-wiki-shaped stream (TGN.yml widths): 4 train batches as
              dedup wires, one as a compact wire, then the first 2 and the
@@ -197,6 +222,19 @@ device, phase by phase, one JSON line per phase:
              exchange, mail re-plan, composition) of TGN-memory.yml at 2
              and 4 hosts, replicated against owned; host_s, the work one
              host of such a deployment does; no kernel may launch
+  sharded_train
+             the CLI with --engine sharded --dp 1 --state-ax 1 at full
+             width (TGN-memory.yml, one epoch after the warm-up and the
+             slot-unique val pass) beside the serial CLI arm: loss sum and
+             val MRR equal, the same launches, edges/s, host times, val
+             seconds, peak memory
+  sharded_two_rank_train
+             TGN-memory.yml at full width with dropout 0 at dp = 2 on two
+             processes of the card over gloo, beside a serial arm at
+             dropout 0: epoch and val seconds, the collectives' calls,
+             bytes and host seconds, loss and val MRR against the serial
+             arm (the phase fails past 1e-2), each rank's launches equal
+             to the serial arm's at half its root slots
   counters   launches of each kernel on the frozen path (train + eval;
              all five must be > 0), on the memory path (memory_train +
              memory_eval; the dropout pair and the inference forward must
@@ -216,8 +254,10 @@ device, phase by phase, one JSON line per phase:
              TGN-memory.yml at 2 hosts with each exchange, 17 for TGN.yml
              at 4, 56 for DyRep.yml at 2, none for JODIE; the inference
              forward once an embed chunk of the TGN-memory.yml arms' val
-             passes), each path's counts set to 0 just before it; the
-             kernel table sums them
+             passes), on the sharded paths (world size 1: the serial CLI
+             arm's launches; dp = 2, rank 0: the dropout-0 serial arm's),
+             each path's counts set to 0 just before it; the kernel table
+             sums them
   profile    torch.profiler over 4 train steps and one val batch (by the
              slot-unique and by the column-chunk protocol) of a fresh
              engine, frozen, memory, JODIE and DyRep, and at gnn.layer 2
@@ -244,6 +284,7 @@ and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -287,6 +328,8 @@ SHAPES = [("train", 6144, 43, 8, 0.02), ("eval", 40960, 43, 8, 0.02),
           ("eval_unique", 46812, 43, 8, 0.02),
           ("composed", 12288, 43, 8, 0.02),
           ("composed_n4", 24576, 43, 8, 0.02),
+          ("train_dp2", 3072, 43, 8, 0.02),
+          ("eval_unique_dp2", 23406, 43, 8, 0.02),
           ("masked", 512, 43, 8, 0.5), ("odd_kp", 1000, 17, 8, 0.0),
           ("odd_h", 999, 17, 3, 0.1), ("long_kp", 512, 200, 8, 0.1),
           ("misaligned", 1000, 200, 8, 0.1),
@@ -297,12 +340,19 @@ SHAPES = [("train", 6144, 43, 8, 0.02), ("eval", 40960, 43, 8, 0.02),
 # 46,812; also the column-chunk protocol's 40,960-slot chunk, beside it),
 # the column chunk for the training forward, the train batch for the
 # others; the dropout pair also at the multi-host composed step's root
-# slots, N x 6,144 at N = 2 (composed) and 4 (composed_n4)
-TIMED_SHAPES = {"attention_fwd": ("eval",),
-                "attention_fwd_infer": ("eval_unique", "eval"),
-                "attention_fwd_drop": ("train", "composed", "composed_n4"),
-                "attention_bwd": ("train",),
-                "attention_bwd_drop": ("train", "composed", "composed_n4")}
+# slots, N x 6,144 at N = 2 (composed) and 4 (composed_n4); and the dp = 2
+# shares of the sharded engine: half the train batch's root slots
+# (train_dp2: every kernel of a train step, the dropout pair at the
+# config's dropout and the dropout-0 pair) and half the slot-unique chunk
+# (eval_unique_dp2)
+TIMED_SHAPES = {"attention_fwd": ("eval", "train_dp2"),
+                "attention_fwd_infer": ("eval_unique", "eval",
+                                        "eval_unique_dp2"),
+                "attention_fwd_drop": ("train", "composed", "composed_n4",
+                                       "train_dp2"),
+                "attention_bwd": ("train", "train_dp2"),
+                "attention_bwd_drop": ("train", "composed", "composed_n4",
+                                       "train_dp2")}
 # what the memory path's train (dropout 0.2) and eval launch
 MEMORY_PATH_KERNELS = ("attention_fwd_drop", "attention_bwd_drop",
                        "attention_fwd_infer")
@@ -527,12 +577,9 @@ def _tiny(pkg, num_neg=8):
                          num_neg=num_neg, seed=1)
 
 
-def _recording_engine(pkg, raw, dev):
-    """An engine of ``raw`` on the tiny stream on ``dev``, and the list its
-    train steps append their losses to."""
-    eng = pkg.Engine(_tiny(pkg), pkg.parse_config_dict(raw), device=dev)
-    losses = []
-    step = eng._train_step
+def _recorder(eng):
+    """Wrap ``eng._train_step`` to append each step's loss to a list."""
+    losses, step = [], eng._train_step
 
     def rec(pack, acc):
         loss, acc = step(pack, acc)
@@ -540,7 +587,14 @@ def _recording_engine(pkg, raw, dev):
         return loss, acc
 
     eng._train_step = rec
-    return eng, losses
+    return losses
+
+
+def _recording_engine(pkg, raw, dev):
+    """An engine of ``raw`` on the tiny stream on ``dev``, and the list its
+    train steps append their losses to."""
+    eng = pkg.Engine(_tiny(pkg), pkg.parse_config_dict(raw), device=dev)
+    return eng, _recorder(eng)
 
 
 def _gpu_and_cpu(pkg, raw, protocol="slot_unique", chunked=False):
@@ -2334,6 +2388,723 @@ def phase_multihost_host_only(torch, pkg, attention, data, cfg_path):
                   / arms["replicated"]["host_s"]))
 
 
+# ------------------------------------------------------ the sharded engine
+SHARDED_TOL = 1e-6            # GPU against CPU at world size 1: a step's
+                              # loss and mem, |a - b| <= tol + tol·|b|
+SHARDED_RTOL = 2e-4           # dp = 2 against the serial engine (the CPU
+                              # tests' bound, tests/test_parallel.py:126)
+# full width at dp = 2 against the serial arm: the prediction (PERF.md
+# §6) and the bound past which the phase fails
+TWO_RANK_PREDICTED = dict(loss_rel=5e-3, mrr_abs=5e-3)
+TWO_RANK_BOUND = dict(loss_rel=1e-2, mrr_abs=1e-2)
+WORKER_TIMEOUT_S = 420
+
+
+def _close(a, b, tol):
+    return abs(a - b) <= tol + tol * abs(b)
+
+
+def _group(torch, backend, tmp, name):
+    """A process group of one (the tiny runs' world size 1) through a file
+    store in ``tmp``."""
+    import torch.distributed as dist
+    dist.init_process_group(backend, init_method=f"file://{tmp}/{name}",
+                            world_size=1, rank=0)
+
+
+def _tiny_sharded_run(torch, pkg, raw, dev, sharded=False,
+                      mesh=None):
+    """One epoch, the val and the test pass of the tiny stream: (engine,
+    step losses, stats, val, test, whole memory state or None)."""
+    if sharded:
+        eng = pkg.ShardedEngine(_tiny(pkg), pkg.parse_config_dict(raw),
+                                mesh=mesh, device=dev)
+    else:
+        eng = pkg.Engine(_tiny(pkg), pkg.parse_config_dict(raw), device=dev)
+    losses = _recorder(eng)
+    stats = eng.train_epoch()
+    val, test = eng.evaluate("val"), eng.evaluate("test")
+    mem = None
+    if eng.use_memory:
+        mem = eng.full_memory_state() if sharded else eng.mem_state
+    return eng, losses, stats, val, test, mem
+
+
+def phase_sharded_reference(torch, pkg, attention, tmp):
+    """ShardedEngine at world size 1 on the tiny stream at dropout 0, for
+    frozen TGN, the memory and JODIE: on the GPU over NCCL bit-equal to the
+    serial GPU Engine (both under torch.use_deterministic_algorithms:
+    per-step losses, stats, val and test MRR, parameters, MemoryState),
+    and equal to the CPU ShardedEngine over gloo within SHARDED_TOL (a
+    step's loss, mem; MRR within MRR_TOL).  Returns the GPU sharded runs'
+    launches, which must equal the serial runs'."""
+    import torch.distributed as dist
+    from tgb_tgn_dgl_tpu_torch.parallel.mesh import make_mesh
+    cases = (("frozen", REFERENCE_RAW), ("memory", MEMORY_RAW),
+             ("jodie", _arch_raw("identity")))
+    gpu, launches = {}, {}
+    _group(torch, "nccl", tmp, "nccl_store")
+    try:
+        nccl = _nccl_calls(torch, dist)
+        mesh = make_mesh(backend="nccl")
+        for name, raw in cases:
+            for sharded in (False, True):
+                attention.reset_launch_counts()
+                torch.use_deterministic_algorithms(True, warn_only=True)
+                try:
+                    gpu[name, sharded] = _tiny_sharded_run(
+                        torch, pkg, raw, "cuda", sharded, mesh)
+                finally:
+                    torch.use_deterministic_algorithms(False)
+                launches[name, sharded] = dict(attention.launch_counts)
+    finally:
+        dist.destroy_process_group()
+    cpu = {}
+    _group(torch, "gloo", tmp, "gloo_store")
+    try:
+        mesh = make_mesh(backend="gloo")
+        for name, raw in cases:
+            cpu[name] = _tiny_sharded_run(torch, pkg, raw, "cpu", True, mesh)
+    finally:
+        dist.destroy_process_group()
+    for name, _ in cases:
+        s_eng, s_l, s_st, s_v, s_t, s_mem = gpu[name, False]
+        g_eng, g_l, g_st, g_v, g_t, g_mem = gpu[name, True]
+        c_eng, c_l, c_st, c_v, c_t, c_mem = cpu[name]
+        bit = (s_l == g_l and s_st == g_st and (s_v, s_t) == (g_v, g_t)
+               and all(torch.equal(a, b) for a, b in zip(
+                   s_eng.model.parameters(), g_eng.model.parameters()))
+               and (s_mem is None or all(torch.equal(a, b) for a, b in
+                                         zip(s_mem, g_mem))))
+        res = dict(phase="sharded_reference", config=name,
+                   mesh=g_eng.mesh.shape, nccl_calls=nccl, steps=len(g_l),
+                   bit_equal_serial_gpu=bit,
+                   losses_gpu=g_l, losses_cpu=c_l,
+                   max_loss_diff=max(abs(a - b) for a, b in zip(g_l, c_l)),
+                   mrr_gpu=g_v, mrr_cpu=c_v, test_mrr_gpu=g_t,
+                   test_mrr_cpu=c_t, tol=SHARDED_TOL, mrr_tol=MRR_TOL,
+                   launches_gpu=launches[name, True],
+                   launches_serial_gpu=launches[name, False])
+        ok = (bit and len(g_l) == len(c_l) == 6
+              and all(_close(a, b, SHARDED_TOL) for a, b in zip(g_l, c_l))
+              and abs(g_v - c_v) <= MRR_TOL and abs(g_t - c_t) <= MRR_TOL
+              and launches[name, True] == launches[name, False])
+        if g_mem is not None:
+            res["max_mem_diff"] = float((g_mem.mem.cpu() - c_mem.mem)
+                                        .abs().max())
+            res["unequal_state_fields"] = [
+                f for f in g_mem._fields if f != "mem" and not torch.equal(
+                    getattr(g_mem, f).cpu(), getattr(c_mem, f))]
+            ok = ok and bool(((g_mem.mem.cpu() - c_mem.mem).abs()
+                              <= SHARDED_TOL + SHARDED_TOL
+                              * c_mem.mem.abs()).all()) \
+                and not res["unequal_state_fields"]
+        emit(res)
+        if not ok:
+            raise AssertionError(f"sharded_reference {name}: the sharded "
+                                 f"engine departs from the serial GPU engine"
+                                 f" or from the CPU")
+
+
+def _nccl_calls(torch, dist):
+    """The mesh's NCCL calls on CUDA tensors in the group of one (the mesh
+    itself makes none at an axis of one): an all-gather of raw bytes, a
+    sum and a reduce-scatter, each of which must return its input."""
+    x = torch.arange(12, dtype=torch.float32, device="cuda").view(3, 4)
+    raw = x.view(torch.uint8)
+    out = torch.empty_like(raw)
+    dist.all_gather_into_tensor(out, raw)
+    s = x.clone()
+    dist.all_reduce(s)
+    rs = torch.empty_like(x)
+    dist.reduce_scatter_tensor(rs, x)
+    ok = (torch.equal(out.view(torch.float32), x) and torch.equal(s, x)
+          and torch.equal(rs, x))
+    if not ok:
+        raise AssertionError("NCCL calls in a group of one changed data")
+    return ["all_gather_into_tensor", "all_reduce", "reduce_scatter_tensor"]
+
+
+def _hash(torch, t):
+    """An order-sensitive checksum of a tensor's bits."""
+    if t.numel() == 0:
+        return 0
+    b = t.detach().contiguous().reshape(-1).view(torch.uint8).to(torch.int64)
+    w = torch.arange(1, b.numel() + 1, device=b.device) % 65521 + 1
+    return int((b * w).sum())
+
+
+def _op_trace(torch):
+    """A dispatch mode that records (op, input checksums, output checksums)
+    for every aten op in order."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    class Trace(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            ins = [_hash(torch, a) for a in tree_flatten((args, kwargs))[0]
+                   if isinstance(a, torch.Tensor)]
+            out = func(*args, **kwargs)
+            # an empty tensor's bits are whatever the allocator left
+            outs = [] if "empty" in str(func) else [
+                _hash(torch, a) for a in tree_flatten(out)[0]
+                if isinstance(a, torch.Tensor)]
+            self.ops.append((str(func), ins, outs))
+            return out
+
+    return Trace()
+
+
+def _first_divergence(a, b):
+    """The first op whose inputs agree across two traces and whose outputs
+    do not (the op that is not reproducible), else the first op whose
+    inputs differ (a difference from outside aten, e.g. a ctypes
+    kernel)."""
+    for i, ((fa, ia, oa), (fb, ib, ob)) in enumerate(zip(a, b)):
+        if fa != fb:
+            return dict(index=i, op=fa, other=fb, kind="op sequence")
+        if ia != ib:
+            return dict(index=i, op=fa, kind="inputs differ")
+        if oa != ob:
+            return dict(index=i, op=fa, kind="outputs differ")
+    return None
+
+
+def phase_nondeterminism(torch, pkg):
+    """Which CUDA op of the memory path does not repeat bit for bit: one
+    train step of the tiny memory stream, the serial Engine's (batch 100)
+    and MultiHostEngine's composed step (2 x 100 events), each run twice
+    from the same seed in the default mode and twice under
+    torch.use_deterministic_algorithms(True); every gradient, parameter
+    and MemoryState field hashed, and the default runs' aten ops traced
+    (inputs and outputs hashed) to name the ops whose outputs differ on
+    equal inputs."""
+    def one_step(multihost, det):
+        torch.use_deterministic_algorithms(det, warn_only=True)
+        try:
+            raw = pkg.parse_config_dict(MEMORY_RAW)
+            if multihost:
+                eng = pkg.MultiHostEngine(_tiny(pkg), raw, n_hosts=2,
+                                          device="cuda")
+                name = "_composed_step"
+            else:
+                raw.train.sanity_batches = 1
+                eng = pkg.Engine(_tiny(pkg), raw, device="cuda")
+                name = "_train_step"
+            mode = None if det else _op_trace(torch)
+            step = getattr(eng, name)
+
+            def traced(*args):
+                if mode is None:
+                    return step(*args)
+                with mode:
+                    out = step(*args)
+                    torch.cuda.synchronize()
+                return out
+
+            setattr(eng, name, traced)
+            if multihost:
+                eng.train_epoch(max_super_batches=1)
+            else:
+                eng.train_epoch()
+            torch.cuda.synchronize()
+            hashes = {f"grad {n}": _hash(torch, p.grad)
+                      for n, p in eng.model.named_parameters()
+                      if p.grad is not None}
+            hashes.update({f"param {n}": _hash(torch, p)
+                           for n, p in eng.model.named_parameters()})
+            hashes.update({f"mem_state {f}": _hash(torch, t) for f, t in
+                           zip(eng.mem_state._fields, eng.mem_state)})
+            return hashes, (mode.ops if mode else None)
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+    for path, multihost in (("serial", False), ("multihost_composed", True)):
+        res = dict(phase="nondeterminism", path=path,
+                   events=200 if multihost else 100)
+        for label, det in (("default", False), ("deterministic", True)):
+            (ha, ta), (hb, tb) = one_step(multihost, det), \
+                one_step(multihost, det)
+            res[label] = dict(differ=[k for k in ha if ha[k] != hb.get(k)],
+                              hashed=len(ha))
+            if ta is not None:
+                res[label].update(
+                    ops_traced=len(ta),
+                    first_divergence=_first_divergence(ta, tb),
+                    unrepeatable_ops=sorted({
+                        fa for (fa, ia, oa), (_, ib, ob) in zip(ta, tb)
+                        if ia == ib and oa != ob}))
+        emit(res)
+        if res["deterministic"]["differ"]:
+            raise AssertionError(f"nondeterminism {path}: the deterministic"
+                                 f" mode does not repeat")
+
+
+def _spawn_workers(tmp, spec, world=2):
+    """Run ``python3 chip_smoke.py --sharded-worker`` on ``world`` ranks
+    over gloo (one card: NCCL refuses two ranks on one device); every
+    rank must exit 0 within WORKER_TIMEOUT_S; returns each rank's
+    results.  No process outlives the call."""
+    import torch
+    path = os.path.join(tmp, "spec.json")
+    with open(path, "w") as f:
+        json.dump(dict(spec, tmp=tmp, world=world), f)
+    logs = [open(os.path.join(tmp, f"rank{r}.log"), "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--sharded-worker", path, str(r)],
+                              stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(world)]
+    try:
+        for p in procs:
+            p.wait(timeout=WORKER_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode]
+    if bad:
+        for r in bad:
+            with open(os.path.join(tmp, f"rank{r}.log")) as f:
+                print(f"--- rank {r} ---\n{f.read()[-6000:]}", flush=True)
+        raise AssertionError(f"ranks {bad} failed")
+    return [torch.load(os.path.join(tmp, f"out{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def _worker_engine_job(torch, pkg, attention, mesh, job, rank):
+    """One engine job of a worker: the tiny stream (MEMORY_RAW at dropout
+    0, deterministic mode) or a config at full width with dropout 0."""
+    import dataclasses
+    if job["data"] == "tiny":
+        data, cfg = _tiny(pkg), pkg.parse_config_dict(MEMORY_RAW)
+    else:
+        data = pkg.synthetic(job["data"])
+        cfg = pkg.parse_config(job["config"])
+        cfg = dataclasses.replace(cfg, gnn=dataclasses.replace(
+            cfg.gnn, override_dropout=0.0))
+    with _rows_seen() as rows:
+        torch.use_deterministic_algorithms(job["deterministic"],
+                                           warn_only=True)
+        try:
+            eng = pkg.ShardedEngine(data, cfg, mesh=mesh, device="cuda")
+            if job.get("warm"):
+                eng.warm_buckets()
+                eng._warmed = True
+            losses = _recorder(eng)
+            attention.reset_launch_counts()
+            mesh.stats.update(calls=0, bytes=0, seconds=0.0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            stats = eng.train_epoch()
+            torch.cuda.synchronize()
+            out = dict(rank=rank, mesh=mesh.shape, losses=losses, stats=stats,
+                       train_s=time.perf_counter() - t0,
+                       trace=dict(eng.last_epoch_trace),
+                       train_collectives=dict(mesh.stats),
+                       train_launches=dict(attention.launch_counts),
+                       train_rows=sorted(rows["train"]))
+            attention.reset_launch_counts()
+            mesh.stats.update(calls=0, bytes=0, seconds=0.0)
+            t0 = time.perf_counter()
+            out["val"] = eng.evaluate("val")
+            torch.cuda.synchronize()
+            out.update(val_s=time.perf_counter() - t0,
+                       eval_trace=_eval_record(eng.last_eval_trace),
+                       val_collectives=dict(mesh.stats),
+                       val_launches=dict(attention.launch_counts),
+                       eval_rows=sorted(rows["eval"]),
+                       peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+            if job["data"] == "tiny":
+                out["params"] = {k: v.cpu() for k, v in
+                                 eng.model.state_dict().items()}
+                out["mem"] = {k: v.cpu() for k, v in
+                              eng.full_memory_state()._asdict().items()}
+            return out
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+
+@contextlib.contextmanager
+def _rows_seen():
+    """The root slots each attention call takes while inside, by train
+    (a gradient to compute) and eval: the sets of R it launched at."""
+    import tgb_tgn_dgl_tpu_torch.models.tgnn as tgnn
+    rows = {"train": set(), "eval": set()}
+    core = tgnn.attention_core
+
+    def recorded(el, er, mask, slope, drop_mask=None):
+        rows["train" if el.requires_grad else "eval"].add(el.shape[0])
+        return core(el, er, mask, slope, drop_mask=drop_mask)
+
+    tgnn.attention_core = recorded
+    try:
+        yield rows
+    finally:
+        tgnn.attention_core = core
+
+
+def _worker_global_wire(torch, pkg, mesh, rank):
+    """make_process_global_wire on the card: each rank packs its range of a
+    2-host super-batch; the loss on the gathered wire, on the GPU, against
+    the mean of the per-host losses."""
+    import numpy as np
+    from tgb_tgn_dgl_tpu_torch.data.dependency import get_block
+    from tgb_tgn_dgl_tpu_torch.data.native_packer import NativeStreamPacker
+    from tgb_tgn_dgl_tpu_torch.data.packer import PackerConfig
+    from tgb_tgn_dgl_tpu_torch.engine.negatives import NegLinkSamplerDest
+    from tgb_tgn_dgl_tpu_torch.models.tgnn import (TGNNConfig, bce_loss,
+                                                   init_tgnn, tgnn_forward)
+    from tgb_tgn_dgl_tpu_torch.ops.wire import expand_wire, wire_to_device
+    from tgb_tgn_dgl_tpu_torch.parallel.multihost import (
+        align_wires, make_process_global_wire, offset_wire_for_host)
+    data = pkg.synthetic("mh-2proc", num_edges=600, num_nodes=120,
+                         msg_dim=4, num_neg=2, seed=33)
+    B, K, IW, N = 64, 5, 8, data.num_nodes
+    rows = np.nonzero(data.train_mask)[0]
+    cfg = PackerConfig(num_neighbors=K, batch_size=B, max_intra_block=IW,
+                       root_bucket_lo=512)
+    mcfg = TGNNConfig(edge_feat_dim=data.msg_dim, hidden_dim=16, num_heads=2,
+                      feat_drop=0.0, attn_drop=0.0, const_ones_memory=True)
+    model = init_tgnn(mcfg, torch.Generator().manual_seed(0)).cuda()
+    feats = torch.from_numpy(np.asarray(data.msg, np.float32)).cuda()
+    sampler = NegLinkSamplerDest(data.unique_dst(), seed=5)
+
+    def loss_of(wire):
+        with torch.no_grad():
+            pack = expand_wire(wire_to_device(wire, "cuda"), K, IW, N)
+            pos, neg = tgnn_forward(model, mcfg, None, feats, pack,
+                                    train=False)
+            return float(bce_loss(pos, neg, pack.ev_valid))
+
+    wires, losses = [], []
+    for h in range(2):
+        idx = rows[h * B:(h + 1) * B]
+        src, dst, t = data.src[idx], data.dst[idx], data.t[idx]
+        w, _ = NativeStreamPacker(N, cfg).pack_wire(
+            src, dst, t, idx, get_block(src, dst), sampler.sample(dst))
+        wires.append(w)
+        losses.append(loss_of(w))
+    wires = [offset_wire_for_host(w, h, 2)
+             for h, w in enumerate(align_wires(wires))]
+    glob = loss_of(make_process_global_wire(mesh, wires[rank]))
+    return dict(global_loss=glob, host_losses=losses,
+                ok=abs(glob - 0.5 * sum(losses)) < 1e-5)
+
+
+def _worker_owned_exchange(pkg, rank):
+    """DistributedOwnerExchange over multihost_allgather, one owner a rank
+    (numpy and native), 3 super-batches: every field of the wire packed
+    from the exchanged rows equal to the serial pack."""
+    import numpy as np
+    from tgb_tgn_dgl_tpu_torch.data.dependency import get_block
+    from tgb_tgn_dgl_tpu_torch.data.native_packer import NativeStreamPacker
+    from tgb_tgn_dgl_tpu_torch.data.packer import PackerConfig
+    from tgb_tgn_dgl_tpu_torch.parallel.multihost import multihost_allgather
+    from tgb_tgn_dgl_tpu_torch.parallel.owned_state import (
+        DistributedOwnerExchange, NativeNodeRangeOwnedState,
+        NodeRangeOwnedState, pack_with_gathered_state)
+    data = pkg.synthetic("owned-2proc", num_edges=900, num_nodes=140,
+                         msg_dim=4, num_neg=2, seed=57)
+    B, K, S, N = 75, 5, 2, data.num_nodes
+    cfg = PackerConfig(num_neighbors=K, batch_size=B, max_intra_block=8,
+                       mailbox_size=S)
+    unequal = []
+    for kind, cls in (("numpy", NodeRangeOwnedState),
+                      ("native", NativeNodeRangeOwnedState)):
+        serial, scratch = NativeStreamPacker(N, cfg), NativeStreamPacker(
+            N, cfg)
+        scratch._sticky = serial._sticky
+        owner = cls(N, 2, rank, K, S)
+        ex = DistributedOwnerExchange(owner, rank, 2, multihost_allgather)
+        rng = np.random.default_rng(3)
+        for sb in range(3):
+            batches = []
+            for h in range(2):
+                idx = np.arange((2 * sb + h) * B, (2 * sb + h + 1) * B)
+                src, dst = data.src[idx], data.dst[idx]
+                batches.append((src, dst, data.t[idx], idx,
+                                get_block(src, dst),
+                                rng.integers(0, N, B).astype(np.int32)))
+            got, _, _ = pack_with_gathered_state(scratch, [ex],
+                                                 *batches[rank])
+            snap = serial.snapshot()
+            want, _ = serial.pack_wire(*batches[rank])
+            unequal += [f"{kind} sb {sb} {f}" for f in type(want)._fields
+                        if not np.array_equal(np.asarray(getattr(want, f)),
+                                              np.asarray(getattr(got, f)))]
+            serial.restore(snap)
+            for b in batches:
+                serial.pack_wire(*b)
+                owner.apply_batch(b[0], b[1], b[2], b[4], b[5], e_id=b[3])
+    return dict(unequal=unequal, ok=not unequal)
+
+
+def sharded_worker(spec_path, rank) -> int:
+    """One rank of a two-process run on the one card (gloo, cuda:0)."""
+    import torch
+    import torch.distributed as dist
+    from tgb_tgn_dgl_tpu_torch.ops import attention
+    from tgb_tgn_dgl_tpu_torch.parallel.mesh import Mesh
+    from tgb_tgn_dgl_tpu_torch.parallel.multihost import init_distributed
+    pkg = _package()
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    init_distributed(f"file://{spec['tmp']}/store", spec["world"], rank,
+                     "gloo")
+    try:
+        out = []
+        for job in spec["jobs"]:
+            if job["kind"] == "engine":
+                out.append(_worker_engine_job(
+                    torch, pkg, attention, Mesh(job["dp"], job["state"]),
+                    job, rank))
+            elif job["kind"] == "global_wire":
+                out.append(_worker_global_wire(torch, pkg, Mesh(2, 1), rank))
+            else:
+                out.append(_worker_owned_exchange(pkg, rank))
+        torch.save(out, os.path.join(spec["tmp"], f"out{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _serial_tiny_gpu(torch, pkg, attention):
+    """The serial GPU Engine on the tiny memory stream at dropout 0 under
+    deterministic algorithms: (losses, stats, val, params, mem,
+    launches)."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        attention.reset_launch_counts()
+        eng = pkg.Engine(_tiny(pkg), pkg.parse_config_dict(MEMORY_RAW),
+                         device="cuda")
+        losses = _recorder(eng)
+        stats = eng.train_epoch()
+        val = eng.evaluate("val")
+        return (losses, stats, val,
+                {k: v.cpu() for k, v in eng.model.state_dict().items()},
+                {k: v.cpu() for k, v in eng.mem_state._asdict().items()},
+                dict(attention.launch_counts))
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def phase_sharded_two_rank(torch, pkg, attention, tmp):
+    """Two processes on the one card over gloo (NCCL refuses two ranks on
+    one device): ShardedEngine on the tiny memory stream at dropout 0
+    under deterministic algorithms at dp = 2, state = 1 and dp = 1,
+    state = 2, against the serial GPU Engine: dp = 1, state = 2 bit-equal
+    (losses, stats, val MRR, parameters, MemoryState), dp = 2 within
+    SHARDED_RTOL (epoch loss, val MRR); the ranks equal each other; then
+    make_process_global_wire (the loss on the gathered wire the mean of
+    the hosts' within 1e-5) and DistributedOwnerExchange (wires equal to
+    the serial pack)."""
+    jobs = [dict(kind="engine", data="tiny", dp=dp, state=st,
+                 deterministic=True) for dp, st in ((2, 1), (1, 2))]
+    jobs += [dict(kind="global_wire"), dict(kind="owned_exchange")]
+    t0 = time.perf_counter()
+    ranks = _spawn_workers(tmp, dict(jobs=jobs))
+    seconds = time.perf_counter() - t0
+    s_l, s_st, s_v, s_p, s_m, s_launch = _serial_tiny_gpu(torch, pkg,
+                                                          attention)
+    for j, (dp, st) in enumerate(((2, 1), (1, 2))):
+        r0, r1 = ranks[0][j], ranks[1][j]
+        same_ranks = (r0["losses"] == r1["losses"] and r0["val"] == r1["val"]
+                      and all(torch.equal(v, r1["params"][k])
+                              for k, v in r0["params"].items()))
+        bit = (r0["losses"] == s_l and r0["stats"] == s_st
+               and r0["val"] == s_v
+               and all(torch.equal(v, r0["params"][k]) for k, v in s_p.items())
+               and all(torch.equal(v, r0["mem"][k]) for k, v in s_m.items()))
+        rel = abs(r0["stats"]["loss"] - s_st["loss"]) / abs(s_st["loss"])
+        res = dict(phase="sharded_two_rank", mesh=r0["mesh"], backend="gloo",
+                   ranks=2, device="cuda:0 (both ranks)",
+                   seconds=seconds, loss=r0["stats"]["loss"],
+                   serial_loss=s_st["loss"], loss_rel_diff=rel,
+                   val=r0["val"], serial_val=s_v, bit_equal_serial=bit,
+                   ranks_equal=same_ranks, rtol=SHARDED_RTOL,
+                   launches_rank0=r0["train_launches"],
+                   serial_train_launches=s_launch,
+                   train_rows=[r0["train_rows"], r1["train_rows"]],
+                   collectives=r0["train_collectives"])
+        ok = same_ranks and (bit if dp == 1 else (
+            rel <= SHARDED_RTOL and _close(r0["val"], s_v, SHARDED_RTOL)))
+        emit(res)
+        if not ok:
+            raise AssertionError(f"sharded_two_rank {r0['mesh']}: departs "
+                                 f"from the serial GPU engine")
+    gw = [r[2] for r in ranks]
+    ox = [r[3] for r in ranks]
+    emit(dict(phase="sharded_two_rank", check="make_process_global_wire",
+              ranks=gw))
+    emit(dict(phase="sharded_two_rank", check="DistributedOwnerExchange",
+              ranks=ox))
+    if not all(r["ok"] for r in gw + ox):
+        raise AssertionError("sharded_two_rank: the global wire or the "
+                             "owned exchange failed its check")
+
+
+def _cli_arm(torch, attention, root, cfg_path, flags):
+    """One CLI run (one epoch and its val pass) at full width: the engine,
+    its record and its launches counted from 0."""
+    from tgb_tgn_dgl_tpu_torch.run_tgn import main
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attention.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = main(["--data", "tgbl-wiki", "--synthetic", "--config", cfg_path,
+                "--epochs", "1", *flags])
+    torch.cuda.synchronize()
+    eng, hist = out["engine"], out["histories"][0]
+    tr = eng.last_epoch_trace
+    ev = eng.last_eval_trace
+    rec = dict(wall_s=time.perf_counter() - t0, loss_sum=hist["loss"][0],
+               train_s=hist["train_s"][0], val=hist["val"][0],
+               val_s=hist["val_s"][0],
+               edges_per_s=float(eng.data.train_mask.sum())
+               / hist["train_s"][0],
+               pack_s=tr["pack_s"], fetch_s=tr["fetch_s"],
+               copy_s=tr["copy_s"], disp_s=tr["disp_s"],
+               eval=_eval_record(ev),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+    return eng, rec, dict(attention.launch_counts)
+
+
+def phase_sharded_train(torch, attention, root, cfg_path):
+    """The CLI at full width, configs/TGN-memory.yml on the tgbl-wiki-shaped
+    stream, ``--engine sharded --dp 1 --state-ax 1`` (world size 1, no
+    process group: no collective), beside the serial CLI arm of this
+    call: one epoch after the bucket warm-up and the slot-unique val pass
+    each; the loss sum and val MRR equal to the serial arm's, and the same
+    launches.  Returns the sharded arm's launches and the serial arm's."""
+    eng_s, serial, serial_launch = _cli_arm(torch, attention, root, cfg_path,
+                                            [])
+    del eng_s
+    eng, sharded, launches = _cli_arm(
+        torch, attention, root, cfg_path,
+        ["--engine", "sharded", "--dp", "1", "--state-ax", "1"])
+    if type(eng).__name__ != "ShardedEngine":
+        raise AssertionError("the CLI did not build a ShardedEngine")
+    res = dict(phase="sharded_train", config="TGN-memory.yml",
+               mesh=eng.mesh.shape, sharded=sharded, serial=serial,
+               loss_equal=sharded["loss_sum"] == serial["loss_sum"],
+               val_equal=sharded["val"] == serial["val"],
+               launches=launches, serial_launches=serial_launch)
+    emit(res)
+    if not (res["loss_equal"] and res["val_equal"]
+            and sharded["eval"]["protocol"] == "slot_unique"
+            and launches == serial_launch):
+        raise AssertionError("sharded_train: the sharded CLI run departs "
+                             "from the serial arm")
+    return launches, serial_launch
+
+
+def phase_sharded_two_rank_train(torch, pkg, attention, tmp, data,
+                                 cfg_path):
+    """configs/TGN-memory.yml at full width with dropout 0, dp = 2 on the
+    one card over gloo (two processes, every collective staged through
+    the host): the warmed epoch and the slot-unique val pass on each rank,
+    with the collectives' host seconds apart, beside a serial arm of this
+    process at the same dropout 0.  Each rank launches what the serial arm
+    launches, at half its root slots.  Returns the ranks' launches and
+    the serial arm's."""
+    import dataclasses
+    import math
+    jobs = [dict(kind="engine", data="tgbl-wiki", config=cfg_path, dp=2,
+                 state=1, deterministic=False, warm=True)]
+    t0 = time.perf_counter()
+    ranks = _spawn_workers(tmp, dict(jobs=jobs))
+    seconds = time.perf_counter() - t0
+    cfg = pkg.parse_config(cfg_path)
+    cfg = dataclasses.replace(cfg, gnn=dataclasses.replace(
+        cfg.gnn, override_dropout=0.0))
+    eng = pkg.Engine(data, cfg)
+    eng.warm_buckets()
+    eng._warmed = True
+    with _rows_seen() as rows:
+        attention.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = eng.train_epoch()
+        torch.cuda.synchronize()
+        serial = dict(loss=stats["loss"], train_s=time.perf_counter() - t0,
+                      trace=dict(eng.last_epoch_trace))
+        train_launch = dict(attention.launch_counts)
+        attention.reset_launch_counts()
+        t0 = time.perf_counter()
+        serial["val"] = eng.evaluate("val")
+        torch.cuda.synchronize()
+        serial.update(val_s=time.perf_counter() - t0,
+                      eval=_eval_record(eng.last_eval_trace),
+                      train_rows=sorted(rows["train"]),
+                      eval_rows=sorted(rows["eval"]))
+        val_launch = dict(attention.launch_counts)
+    del eng
+    r0, r1 = (r[0] for r in ranks)
+    rel = abs(r0["stats"]["loss"] - serial["loss"]) / abs(serial["loss"])
+    dmrr = abs(r0["val"] - serial["val"])
+    half = [-(-max(serial["train_rows"]) // 2),
+            -(-max(serial["eval_rows"]) // 2)]
+    res = dict(phase="sharded_two_rank_train", config="TGN-memory.yml",
+               dropout=0.0, mesh=r0["mesh"], backend="gloo", ranks=2,
+               seconds=seconds, serial=serial,
+               rank0={k: r0[k] for k in (
+                   "stats", "train_s", "val", "val_s", "trace", "eval_trace",
+                   "train_collectives", "val_collectives", "peak_mem_gb",
+                   "train_rows", "eval_rows")},
+               rank1_train_s=r1["train_s"], rank1_val_s=r1["val_s"],
+               loss_rel_diff=rel, val_abs_diff=dmrr,
+               predicted=TWO_RANK_PREDICTED, bound=TWO_RANK_BOUND,
+               within_prediction=rel <= TWO_RANK_PREDICTED["loss_rel"]
+               and dmrr <= TWO_RANK_PREDICTED["mrr_abs"],
+               launches_rank=[r0["train_launches"], r0["val_launches"]],
+               launches_serial=[train_launch, val_launch],
+               half_rows=half)
+    emit(res)
+    ok = (math.isfinite(r0["stats"]["loss"])
+          and r0["stats"] == r1["stats"] and r0["val"] == r1["val"]
+          and rel <= TWO_RANK_BOUND["loss_rel"]
+          and dmrr <= TWO_RANK_BOUND["mrr_abs"]
+          and r0["train_launches"] == r1["train_launches"] == train_launch
+          and r0["val_launches"] == r1["val_launches"] == val_launch
+          and max(r0["train_rows"]) == half[0]
+          and max(r0["eval_rows"]) == half[1])
+    if not ok:
+        raise AssertionError("sharded_two_rank_train: the ranks disagree, "
+                             "depart from the serial arm past the bound, or "
+                             "launch otherwise")
+    return ([r0["train_launches"], r0["val_launches"]],
+            [train_launch, val_launch])
+
+
+def _package():
+    """The port's entry points the phases drive."""
+    from types import SimpleNamespace
+
+    from tgb_tgn_dgl_tpu_torch.data.dataset import synthetic
+    from tgb_tgn_dgl_tpu_torch.engine.train import Engine
+    from tgb_tgn_dgl_tpu_torch.parallel.engine import ShardedEngine
+    from tgb_tgn_dgl_tpu_torch.parallel.mh_engine import MultiHostEngine
+    from tgb_tgn_dgl_tpu_torch.utils.config import (parse_config,
+                                                    parse_config_dict)
+    return SimpleNamespace(synthetic=synthetic, Engine=Engine,
+                           MultiHostEngine=MultiHostEngine,
+                           ShardedEngine=ShardedEngine,
+                           parse_config=parse_config,
+                           parse_config_dict=parse_config_dict)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2344,18 +3115,9 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository",
               file=sys.stderr)
         return 2
-    from types import SimpleNamespace
-
-    from tgb_tgn_dgl_tpu_torch.data.dataset import synthetic
-    from tgb_tgn_dgl_tpu_torch.engine.train import Engine
     from tgb_tgn_dgl_tpu_torch.ops import _build, attention
-    from tgb_tgn_dgl_tpu_torch.parallel.mh_engine import MultiHostEngine
-    from tgb_tgn_dgl_tpu_torch.utils.config import (parse_config,
-                                                    parse_config_dict)
-    pkg = SimpleNamespace(synthetic=synthetic, Engine=Engine,
-                          MultiHostEngine=MultiHostEngine,
-                          parse_config=parse_config,
-                          parse_config_dict=parse_config_dict)
+    pkg = _package()
+    synthetic = pkg.synthetic
     phase = "device"
     try:
         smi = nvidia_smi_line()
@@ -2401,6 +3163,14 @@ def main() -> int:
         phase_train_lean_reference(torch, pkg)
         phase = "multihost_reference"
         phase_multihost_reference(torch, pkg, attention)
+        phase = "nondeterminism"
+        phase_nondeterminism(torch, pkg)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            phase = "sharded_reference"
+            phase_sharded_reference(torch, pkg, attention, tmp)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            phase = "sharded_two_rank"
+            phase_sharded_two_rank(torch, pkg, attention, tmp)
         phase = "wire"
         data = synthetic("tgbl-wiki")
         cfgs = os.path.join(root, "tgb_tgn_dgl_tpu_torch", "configs")
@@ -2549,11 +3319,28 @@ def main() -> int:
         phase = "multihost_host_only"
         phase_multihost_host_only(torch, pkg, attention, data, mem_cfg_path)
         torch.cuda.empty_cache()
+        # the sharded engine at world size 1 beside its serial arm, then
+        # at dp = 2 on two processes beside a serial arm (each arm's
+        # counts from 0, in the phases)
+        phase = "sharded_train"
+        sharded_counts, sharded_serial = phase_sharded_train(
+            torch, attention, root, mem_cfg_path)
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            phase = "sharded_two_rank_train"
+            (dp2_train, dp2_val), (dp2_want_train, dp2_want_val) = \
+                phase_sharded_two_rank_train(torch, pkg, attention, tmp,
+                                             data, mem_cfg_path)
+        dp2_counts = {k: dp2_train[k] + dp2_val[k] for k in dp2_train}
+        dp2_want = {k: dp2_want_train[k] + dp2_want_val[k]
+                    for k in dp2_want_train}
+        torch.cuda.empty_cache()
         phase = "counters"
         paths = dict(frozen=frozen_counts, memory=memory_counts,
                      layer2=layer2_counts, vector=vector_counts,
                      jodie=jodie_counts, dyrep=dyrep_counts, fit=fit_counts,
-                     **transport_counts, **mh_counts)
+                     **transport_counts, **mh_counts, sharded=sharded_counts,
+                     sharded_dp2_rank0=dp2_counts)
         counts = {k: sum(p[k] for p in paths.values())
                   for k in attention.KERNELS}
         # two attention layers: each kernel twice a step, twice a chunk
@@ -2571,7 +3358,8 @@ def main() -> int:
                   dyrep_expected=dyrep_want, fit_expected=fit_want,
                   **{f"{k}_expected": v for k, v in transport_want.items()},
                   **{f"{k}_expected": v for k, v in mh_want.items()},
-                  launches=counts))
+                  sharded_expected=sharded_serial,
+                  sharded_dp2_rank0_expected=dp2_want, launches=counts))
         idle = [k for k, v in frozen_counts.items() if v == 0]
         idle += [f"{k} (memory path)" for k in MEMORY_PATH_KERNELS
                  if memory_counts[k] == 0]
@@ -2582,12 +3370,20 @@ def main() -> int:
         idle += [f"{k} ({path})" for path, want in mh_want.items()
                  for k in MEMORY_PATH_KERNELS
                  if want[k] and not mh_counts[path][k]]
+        # the sharded paths: TGN-memory.yml at dropout 0.2 (world size 1)
+        # and at dropout 0 (dp = 2: the dropout-0 pair)
+        idle += [f"{k} (sharded path)" for k in MEMORY_PATH_KERNELS
+                 if not sharded_counts[k]]
+        idle += [f"{k} (sharded dp = 2 path)" for k in
+                 ("attention_fwd", "attention_bwd", "attention_fwd_infer")
+                 if not dp2_counts[k]]
         if idle:
             raise AssertionError(f"kernels never launched on the main path: "
                                  f"{idle}")
         if (layer2_counts != layer2_want or dyrep_counts != dyrep_want
                 or fit_counts != fit_want or transport_counts != transport_want
-                or mh_counts != mh_want
+                or mh_counts != mh_want or sharded_counts != sharded_serial
+                or dp2_counts != dp2_want
                 or any(vector_counts.values())
                 or any(jodie_counts.values())):
             raise AssertionError(
@@ -2596,7 +3392,9 @@ def main() -> int:
                 f"{dyrep_want}; fit path {fit_counts}, expected "
                 f"{fit_want}; device-side transports {transport_counts}, "
                 f"expected {transport_want}; multi-host paths {mh_counts}, "
-                f"expected {mh_want}; vector path {vector_counts}; "
+                f"expected {mh_want}; sharded paths {sharded_counts}, "
+                f"{dp2_counts}, expected {sharded_serial}, {dp2_want}; "
+                f"vector path {vector_counts}; "
                 f"JODIE path {jodie_counts}")
         phase = "profile"
         phase_profile(torch, pkg, data, cfg_path, "frozen")
@@ -2629,4 +3427,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-worker"]:
+        sys.exit(sharded_worker(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

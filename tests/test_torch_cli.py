@@ -164,9 +164,17 @@ def test_main_needs_a_gpu_unless_asked_for_the_cpu(files):
 
 
 @pytest.mark.parametrize("engine", ["sharded"])
-def test_parallel_engines_are_not_ported(files, engine):
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        main(_args(files, "--engine", engine, "--device", "cpu"))
+def test_parallel_engines_are_not_ported(files, engine, capsys):
+    """Every engine the CLI offers runs: ``--engine sharded`` at world
+    size 1 on the CPU trains through ShardedEngine and names its mesh
+    (tests/test_torch_sharded.py and test_torch_distributed.py hold it
+    against the serial engine and on two processes)."""
+    out = main(_args(files, "--engine", engine, "--dp", "1", "--state-ax",
+                     "1", "--device", "cpu", "--epochs", "1"))
+    assert type(out["engine"]).__name__ == "ShardedEngine"
+    assert ("engine: sharded over mesh {'dp': 1, 'state': 1} (gloo)"
+            in capsys.readouterr().out)
+    assert len(out["histories"][0]["loss"]) == 1
 
 
 def test_multihost_prints_the_jax_cli_lines(files, capsys, monkeypatch):

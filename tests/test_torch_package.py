@@ -29,7 +29,8 @@ def _imports(path):
     "path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "ab_attention_cuda.py",
                                          ROOT / "sweep_attention_bwd.py",
-                                         ROOT / "trajectory_sensitivity.py"],
+                                         ROOT / "trajectory_sensitivity.py",
+                                         ROOT / "sharded_multi_gpu.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     for name in _imports(path):
@@ -53,7 +54,10 @@ def test_import_builds_nothing():
             "tgb_tgn_dgl_tpu_torch.run_tgn, "
             "tgb_tgn_dgl_tpu_torch.engine.checkpoint, "
             "tgb_tgn_dgl_tpu_torch.utils.metrics, "
-            "tgb_tgn_dgl_tpu_torch.parallel.mh_engine; "
+            "tgb_tgn_dgl_tpu_torch.parallel.mh_engine, "
+            "tgb_tgn_dgl_tpu_torch.parallel.engine, "
+            "tgb_tgn_dgl_tpu_torch.parallel.mesh, "
+            "tgb_tgn_dgl_tpu_torch.parallel.sharded; "
             "from tgb_tgn_dgl_tpu_torch.ops import _build; "
             "print(len(_build._loaded))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

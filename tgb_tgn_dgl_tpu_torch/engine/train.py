@@ -184,6 +184,10 @@ class Engine:
     mailbox memory), JODIE and DyRep; ``mem_state`` holds the memory's
     stream state (a ``MemoryState``, DyRep's ``EagerMemoryState``)."""
 
+    # slot-unique eval pads each embed chunk to a multiple of this many
+    # root slots (the sharded engine splits a chunk over its dp ranks)
+    _root_multiple = 1
+
     def __init__(self, data: TemporalData, config: FrameworkConfig,
                  device=None):
         self.device = resolve_device(device)
@@ -716,7 +720,8 @@ class Engine:
                     "count or negative timestamps rejected it)")
             R = wire.root_loc.shape[0]
             n_chunks = max(1, -(-R // EVAL_UNIQUE_SLOTS))
-            R2 = n_chunks * -(-R // n_chunks)
+            m = self._root_multiple
+            R2 = n_chunks * m * -(-R // (n_chunks * m))
             if R2 != R:
                 pads = {"root_loc": wire.uniq_nid.shape[0] - 1, "root_cr": 0,
                         "intra_lo": 0, "intra_cnt": 0, "intra_start": 0,
@@ -767,6 +772,16 @@ class Engine:
                 if self.use_memory:
                     mem_rows, lu_rows = self._apply_mail(pack0)
             emb[rows] = self._embed(pack, mem_rows, lu_rows, train=False)
+        opt, pes = self._unique_counts(emb, wire, mask, n_mc)
+        acc = self._finalize(acc, opt, pes, valid)
+        if self.use_memory:
+            self._commit(pack0._replace(root_loc=wire.root_loc), mem_rows,
+                         lu_rows, emb)
+        return acc
+
+    def _unique_counts(self, emb, wire, mask, n_mc: int):
+        """The (B,) rank counts of a slot-unique batch from its embedding
+        table, by gathers, ``n_mc`` column chunks of its negative slots."""
         h_src = emb[wire.ev_src_slot.long()]
         h_pos = emb[wire.ev_pos_slot.long()]
         neg_slot = wire.ev_neg_slot.long()                    # (B, Mp)
@@ -779,11 +794,7 @@ class Engine:
             p, m = pos[:, None], mask[:, cols]
             opt = opt + ((neg > p) & m).sum(dim=1)
             pes = pes + ((neg >= p) & m).sum(dim=1)
-        acc = self._finalize(acc, opt, pes, valid)
-        if self.use_memory:
-            self._commit(pack0._replace(root_loc=wire.root_loc), mem_rows,
-                         lu_rows, emb)
-        return acc
+        return opt, pes
 
     # ------------------------------------------------ the eval pass itself
     def evaluate(self, split: str = "val") -> float:
@@ -972,6 +983,7 @@ class Engine:
 
     # ------------------------------------------------------- the epoch loop
     def fit(self, epochs: Optional[int] = None, log=print,
+            eval_every: int = 1,
             early_stop: Optional[EarlyStopMonitor] = None,
             checkpoint_dir: Optional[str] = None,
             checkpoint_every: int = 0,
@@ -980,8 +992,8 @@ class Engine:
         """Epoch loop mirroring tgb_tgn_dgl_tpu engine/train.py:2010-2081
         (reference pyg-mem-tgn.py:53-67): ``epochs`` more epochs, the
         config's count when None, none when 0 (the JAX ``fit`` reads 0 as
-        None), each followed by a val pass; labels and checkpoint names
-        continue from ``_epoch``.
+        None), a val pass after every ``eval_every``-th; labels and
+        checkpoint names continue from ``_epoch``.
         Besides the JAX events, ``metrics.jsonl`` gets a ``checkpoint``
         event with the file's bytes and the save's seconds."""
         metrics = MetricsLogger(log_dir)
@@ -1010,7 +1022,7 @@ class Engine:
                             events_per_s=round(stats["events"]
                                                / max(t1 - t0, 1e-9), 1))
                 val = None
-                if self.data.val_ns is not None:
+                if (e + 1) % eval_every == 0 and self.data.val_ns is not None:
                     t0 = time.time()
                     # val_snapshot keeps the streaming eval's state changes
                     # (clocks, cache, memory advance through val in the
@@ -1033,9 +1045,9 @@ class Engine:
                         checkpoint_dir,
                         f"ckpt_epoch{e + 1:04d}{CHECKPOINT_SUFFIX}")
                     t0 = time.time()
-                    self.save_checkpoint(path)
+                    nbytes = self.save_checkpoint(path)
                     metrics.log("checkpoint", epoch=e + 1, path=path,
-                                bytes=os.path.getsize(path),
+                                bytes=nbytes,
                                 seconds=round(time.time() - t0, 4))
                 if early_stop is not None and val is not None:
                     if early_stop.step_check(val, self._model_state()):
@@ -1133,15 +1145,18 @@ class Engine:
                                        self.mem_state))
         return st
 
-    def save_checkpoint(self, path: str) -> None:
+    def save_checkpoint(self, path: str) -> int:
+        """Write the full state to ``path``; returns the file's bytes."""
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         save_state(path, self._full_state())
+        return os.path.getsize(path)
 
-    def load_checkpoint(self, path: str) -> None:
-        """Restore a ``save_checkpoint`` file.  A missing key or a shape
-        that differs raises and names it; a generator state from another
-        device type raises ValueError (the CUDA Philox state and the CPU
-        Mersenne Twister state cannot stand in for each other)."""
+    def load_checkpoint(self, path: str):
+        """Restore a ``save_checkpoint`` file and return its tree.  A
+        missing key or a shape that differs raises and names it; a
+        generator state from another device type raises ValueError (the
+        CUDA Philox state and the CPU Mersenne Twister state cannot stand
+        in for each other)."""
         template = self._full_state()
         # its size is the device type's: the type is checked first, below
         del template["generator"]
@@ -1181,6 +1196,7 @@ class Engine:
         self.packer.load_bucket_state(pk["buckets"])
         if self.use_memory:
             self.mem_state = type(self.mem_state)(**st["mem_state"])
+        return st
 
 
 def _clone_state(state):

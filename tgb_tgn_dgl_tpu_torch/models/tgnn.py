@@ -329,20 +329,25 @@ def tgnn_forward(model: TGNN, cfg: TGNNConfig,
 
 
 def bce_loss(pos_logits: torch.Tensor, neg_logits: torch.Tensor,
-             ev_valid: torch.Tensor) -> torch.Tensor:
+             ev_valid: torch.Tensor,
+             n_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """BCEWithLogits mean over pos + mean over neg (reference
-    epoch_utils.py:295-296), masked to real (non-padded) events."""
+    epoch_utils.py:295-296), masked to real (non-padded) events.
+    ``n_valid`` replaces the count of real events in the denominators: a
+    share of a batch's events (parallel/sharded.py) takes the batch's
+    count, so that the shares' losses sum to the batch's."""
     v = ev_valid.to(torch.float32)
     pos_l = (torch.clamp(pos_logits, min=0) - pos_logits
              + torch.log1p(torch.exp(-torch.abs(pos_logits))))
     neg_l = (torch.clamp(neg_logits, min=0)
              + torch.log1p(torch.exp(-torch.abs(neg_logits))))
-    denom = torch.clamp(v.sum(), min=1.0)
+    count = v.sum() if n_valid is None else n_valid.to(torch.float32)
+    denom = torch.clamp(count, min=1.0)
     pos_term = (pos_l * v).sum() / denom
     if neg_logits.dim() == 2:
         m = neg_logits.shape[1]
         neg_term = ((neg_l * v[:, None]).sum()
-                    / torch.clamp(v.sum() * m, min=1.0))
+                    / torch.clamp(count * m, min=1.0))
     else:
         neg_term = (neg_l * v).sum() / denom
     return pos_term + neg_term

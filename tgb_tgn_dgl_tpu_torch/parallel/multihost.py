@@ -20,9 +20,12 @@ Protocol ("super-batch exchange"):
     one composed step trains on the whole super-batch.
 
 Here the hosts are ranges of one process on one device: the engine
-(parallel/mh_engine.py) gathers with a local closure.  The process-group
-pieces (``init_distributed``, ``multihost_allgather``,
-``make_process_global_wire``) come with torch.distributed.
+(parallel/mh_engine.py) gathers with a local closure.  Across processes
+(torch.distributed): ``init_distributed`` joins the process group,
+``multihost_allgather`` is the exchange's ragged all-gather, and
+``make_process_global_wire`` assembles the super-batch's wire from each
+process's range (owned_state.py::DistributedOwnerExchange is the owned
+exchange across processes).
 
 The composed steps take one Adam step over the n·B events of a
 super-batch, where a serial engine takes n: that is the only departure
@@ -33,10 +36,11 @@ before the next applies its mail.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.dependency import get_block
 from ..models.factory import arch_embed, arch_predict
@@ -44,6 +48,65 @@ from ..models.memory import apply_mail, commit
 from ..models.tgnn import bce_loss
 from ..models.variants import dyrep_messages, eager_apply_mail, eager_commit
 from ..ops.wire import expand_wire
+
+
+def init_distributed(coordinator_address: Optional[str] = None,
+                     num_processes: Optional[int] = None,
+                     process_id: Optional[int] = None,
+                     backend: str = "gloo") -> int:
+    """Join the process group of ``num_processes`` processes as
+    ``process_id`` (a no-op for one process, as JAX's is); returns this
+    process's rank.  ``coordinator_address`` is an init URL
+    (``tcp://host:port``, ``file://path``, ``env://``); a bare
+    ``host:port`` means tcp."""
+    if not num_processes or num_processes == 1:
+        return 0
+    url = coordinator_address or "env://"
+    if "://" not in url:
+        url = f"tcp://{url}"
+    dist.init_process_group(backend, init_method=url,
+                            world_size=num_processes, rank=process_id)
+    return dist.get_rank()
+
+
+def multihost_allgather(payload: np.ndarray, device="cpu"
+                        ) -> Sequence[np.ndarray]:
+    """Every process's 1-D int64 ``payload``, in rank order, over the
+    process group (lengths first, then payloads padded to the longest,
+    as JAX's at tgb_tgn_dgl_tpu parallel/multihost.py:203-218).  The
+    payloads cross on ``device``: the CPU for gloo, a GPU for NCCL."""
+    payload = np.asarray(payload, np.int64)
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return [payload]
+    n = dist.get_world_size()
+    mine = torch.tensor([len(payload)], dtype=torch.int64, device=device)
+    lens = [torch.empty_like(mine) for _ in range(n)]
+    dist.all_gather(lens, mine)
+    lens = [int(x) for x in lens]
+    local = torch.zeros(max(lens), dtype=torch.int64, device=device)
+    local[:len(payload)] = torch.from_numpy(payload)
+    parts = [torch.empty_like(local) for _ in range(n)]
+    dist.all_gather(parts, local)
+    return [p[:k].cpu().numpy() for p, k in zip(parts, lens)]
+
+
+def make_process_global_wire(mesh, wire, stacked: bool = False):
+    """The super-batch's global wire on every rank from each rank's local
+    one: each field of this rank's (offset, aligned) wire all-gathered
+    over the mesh's dp axis along dim 0 (dim 1 when ``stacked``), in rank
+    order; numpy fields come back as numpy, tensors as tensors (JAX
+    ``make_array_from_process_local_data``, :605-622)."""
+    def put(a):
+        if a is None:
+            return None
+        t = torch.as_tensor(a)
+        if stacked:
+            t = mesh.all_gather(t.movedim(1, 0), "dp").movedim(0, 1)
+        else:
+            t = mesh.all_gather(t, "dp")
+        return t.numpy() if isinstance(a, np.ndarray) else t
+
+    return type(wire)(*(put(a) for a in wire))
 
 
 @dataclass(frozen=True)

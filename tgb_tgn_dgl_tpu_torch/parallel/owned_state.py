@@ -1,7 +1,6 @@
 """Node-range-owned streaming state, the multi-host engine's
 ``exchange="owned"`` (the port's counterpart of
-tgb_tgn_dgl_tpu/parallel/owned_state.py, without its multi-process
-``DistributedOwnerExchange``).
+tgb_tgn_dgl_tpu/parallel/owned_state.py).
 
 The replicated exchange (parallel/multihost.py) keeps every host's packer
 state whole: each host replays all ranges of every super-batch, O(all
@@ -24,7 +23,9 @@ stream:
 the native one.  ``pack_with_gathered_state`` packs a batch on a scratch
 packer filled with the gathered rows, bit-equal to a pack on the whole
 serial state; ``restore_serial_from_owners`` hands the serial packer its
-whole state back.
+whole state back.  ``DistributedOwnerExchange`` is the owners across
+processes: each process holds one owner, and the gathers resolve over an
+injected all-gather (``multihost.multihost_allgather``).
 """
 from __future__ import annotations
 
@@ -418,3 +419,90 @@ def restore_serial_from_owners(packer, owners: Sequence) -> None:
         packer.clock[:] = clock
         packer.mail_ptr[:] = mail
         packer.cur_e_id = cur
+
+
+class DistributedOwnerExchange:
+    """The boundary-row gathers across processes (tgb_tgn_dgl_tpu
+    parallel/owned_state.py:471-566): each process holds ONE owner, and
+    ``get_rows``/``get_mail`` of any node set resolve in two rounds over
+    the injected ``allgather`` (this process's int64 payload -> every
+    process's, in rank order):
+
+      round A: every process all-gathers its request node list;
+      round B: every process answers every request with the rows it owns
+      (request positions and row payload), all-gathered back; a process
+      keeps the segments addressed to it.
+
+    It has a local owner's ``get_rows``/``get_mail`` surface and covers
+    every node, so ``[exchange]`` stands in for the owners list of
+    ``gather_rows`` / ``gather_mail`` / ``pack_with_gathered_state``.
+    Every process must make the same sequence of gathers (one
+    ``pack_with_gathered_state`` a process a super-batch: three).  Numpy
+    only; the payload spends 8 bytes an element."""
+
+    def __init__(self, owner, host: int, n_hosts: int, allgather):
+        self.owner = owner
+        self.host = host
+        self.n_hosts = n_hosts
+        self.allgather = allgather
+        self.K = owner.K
+        self.S = owner.S
+        self.lo = 0             # stands for every node the processes own
+        self.hi = owner.N
+
+    def _resolve(self, nodes, fields_fn, width: int):
+        """The two rounds.  ``fields_fn(req_nodes)`` gives the local
+        owner's (payload (n, width) int64, owned mask); returns the
+        assembled (n, width) matrix and the mask of the rows found."""
+        nodes = np.asarray(nodes, np.int64)
+        parts = []
+        for h, req in enumerate(self.allgather(nodes)):
+            data, owned = fields_fn(np.asarray(req, np.int64))
+            pos = np.nonzero(owned)[0].astype(np.int64)
+            parts.append(np.concatenate(
+                [np.asarray([h, len(pos)], np.int64), pos,
+                 data[pos].reshape(-1)]))
+        out = np.zeros((len(nodes), width), np.int64)
+        mask = np.zeros(len(nodes), bool)
+        for payload in self.allgather(np.concatenate(parts)):
+            payload = np.asarray(payload, np.int64)
+            i = 0
+            while i < len(payload):
+                dest, npos = int(payload[i]), int(payload[i + 1])
+                pos = payload[i + 2:i + 2 + npos]
+                i += 2 + npos
+                data = payload[i:i + npos * width].reshape(npos, width)
+                i += npos * width
+                if dest == self.host and npos:
+                    out[pos] = data
+                    mask[pos] = True
+        return out, mask
+
+    def get_rows(self, nodes):
+        K = self.K
+
+        def fields(req):
+            nbr, eid, t, clock, owned = self.owner.get_rows(req)
+            return np.concatenate(
+                [nbr.astype(np.int64), eid,
+                 t.view(np.uint32).astype(np.int64),
+                 clock.view(np.uint32).astype(np.int64)[:, None]],
+                axis=1), owned
+
+        out, mask = self._resolve(nodes, fields, 3 * K + 1)
+        n = len(out)
+        nbr = out[:, :K].astype(np.int32)
+        eid = np.where(mask[:, None], out[:, K:2 * K], -1)
+        t = out[:, 2 * K:3 * K].astype(np.uint32).view(np.float32)
+        t = np.where(mask[:, None], t.reshape(n, K), -1.0).astype(np.float32)
+        clock = out[:, 3 * K].astype(np.uint32).view(np.float32)
+        clock = np.where(mask, clock.reshape(n), 0.0).astype(np.float32)
+        return nbr, eid, t, clock, mask
+
+    def get_mail(self, nodes):
+        def fields(req):
+            ptr, owned = self.owner.get_mail(req)
+            return ptr[:, None], owned
+
+        out, mask = self._resolve(nodes, fields, 1)
+        return out[:, 0], mask

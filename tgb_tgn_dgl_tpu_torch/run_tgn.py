@@ -16,15 +16,24 @@ and ``--profile`` traces epoch 1 with the same ``fit`` arguments as the
 other epochs (run_tgn.py runs it without checkpoints, the val snapshot
 or early stopping).  ``--engine multihost --hosts N --exchange
 replicated|owned`` trains through parallel/mh_engine.py's
-``MultiHostEngine`` on the one device; ``--engine sharded`` is not ported
-yet, nor its flags (``--dp``, ``--state-ax``).  When the named dataset is
-not under ``--root``, a
-deterministic synthetic stream with its scale statistics stands in (a
-note on stderr says so).
+``MultiHostEngine`` on the one device.  ``--engine sharded --dp D
+--state-ax S`` trains through parallel/engine.py's ``ShardedEngine`` over
+the processes of a launch (``WORLD_SIZE``, ``RANK`` and ``LOCAL_RANK``
+from ``torchrun``'s environment, or one process):
+
+  python -m torch.distributed.run --nproc-per-node 2 \
+      -m tgb_tgn_dgl_tpu_torch.run_tgn --engine sharded --dp 2 ...
+
+with gloo under ``--device cpu`` and NCCL on ``cuda:LOCAL_RANK``
+otherwise; rank 0 alone prints and writes the logs.  When the named
+dataset is not under ``--root``, a deterministic synthetic stream with its
+scale statistics stands in (a note on stderr says so).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import sys
 import time
 from typing import Dict, List, Optional
@@ -72,10 +81,16 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                              "epoch trained into <log-dir>/profile")
     parser.add_argument("--engine", type=str, default="single",
                         choices=("single", "sharded", "multihost"),
-                        help="single: one-device Engine; multihost: "
-                             "composed super-batch engine "
-                             "(parallel/mh_engine.py) on the one device; "
-                             "sharded is not ported yet")
+                        help="single: one-device Engine; sharded: the "
+                             "(dp, state) mesh over the launch's processes "
+                             "(parallel/engine.py); multihost: composed "
+                             "super-batch engine (parallel/mh_engine.py) on "
+                             "the one device")
+    parser.add_argument("--dp", type=int, default=None,
+                        help="sharded: data-parallel mesh width (default: "
+                             "the world size over --state-ax)")
+    parser.add_argument("--state-ax", type=int, default=None,
+                        help="sharded: state-sharding mesh width")
     parser.add_argument("--hosts", type=int, default=2,
                         help="multihost: number of host ranges per "
                              "super-batch")
@@ -93,11 +108,33 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     ``--run-test``) and the checkpoint's load seconds (None without
     ``--resume``)."""
     args = parse_args(argv)
-    if args.engine == "sharded":
-        raise NotImplementedError(
-            "--engine sharded is not ported yet (ROADMAP.md queue 1 item 3: "
-            "ShardedEngine on torch.distributed)")
+    if args.engine != "sharded":
+        return _run(args)
+    from .parallel.multihost import init_distributed
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    rank = int(os.environ.get("RANK", 0))
+    local = int(os.environ.get("LOCAL_RANK", 0))
+    backend = "gloo" if args.device == "cpu" else "nccl"
+    import torch
+    if backend == "nccl" and torch.cuda.is_available():
+        # one card a process; without one the Engine raises, as the
+        # serial one does
+        args.device = args.device or f"cuda:{local}"
+        torch.cuda.set_device(args.device)
+    init_distributed("env://", world, rank, backend)
+    try:
+        with open(os.devnull, "w") as devnull, (
+                contextlib.redirect_stdout(devnull) if rank
+                else contextlib.nullcontext()):
+            return _run(args, backend, rank)
+    finally:
+        if world > 1:
+            import torch.distributed as dist
+            dist.destroy_process_group()
 
+
+def _run(args, backend: Optional[str] = None,
+         rank: int = 0) -> Dict[str, object]:
     from .data.dataset import load_tgb, synthetic
     from .engine.checkpoint import EarlyStopMonitor
     from .engine.train import Engine
@@ -116,7 +153,13 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
 
     print(f"dataset: {data.name}  events={data.num_edges}  "
           f"nodes={data.num_nodes}  msg_dim={data.msg_dim}")
-    if args.engine == "multihost":
+    if args.engine == "sharded":
+        from .parallel.engine import ShardedEngine
+        from .parallel.mesh import make_mesh
+        mesh = make_mesh(dp=args.dp, state=args.state_ax, backend=backend)
+        print(f"engine: sharded over mesh {mesh.shape} ({backend})")
+        engine = ShardedEngine(data, config, mesh=mesh, device=args.device)
+    elif args.engine == "multihost":
         from .parallel.mh_engine import MultiHostEngine
         print(f"engine: multihost composed super-batches, "
               f"hosts={args.hosts}, exchange={args.exchange}")
@@ -142,7 +185,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     start = time.time()
     histories = []
     if args.profile and args.log_dir and epochs > 0:
-        with profile(f"{args.log_dir}/profile", device=engine.device):
+        # one trace: another rank of a sharded run trains unprofiled
+        with (profile(f"{args.log_dir}/profile", device=engine.device)
+              if rank == 0 else contextlib.nullcontext()):
             histories.append(engine.fit(epochs=1, **kw))
         # the monitor's first validation is always an improvement, so
         # nothing has stopped yet
