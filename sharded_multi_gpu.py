@@ -1,30 +1,38 @@
 #!/usr/bin/env python3
-"""The sharded engine across GPUs: two epochs of a config through the port's
-CLI on one GPU (the serial Engine) and with ``--engine sharded`` over the
-processes of ``torch.distributed.run`` (NCCL, one GPU a process) at each
-(dp, state) layout asked for; one JSON line a run from its
-``metrics.jsonl`` (the times of epoch 2 and its val pass: epoch 1 pays the
-kernels' build and the communicators' set-up), and the comparison with
-the serial run.
+"""The sharded engine across GPUs, every arm at dropout 0: two epochs of a
+config through the port's CLI on one GPU (the serial Engine) and with
+``--engine sharded`` over the processes of ``torch.distributed.run``
+(NCCL, one GPU a process) at each (dp, state) layout asked for; one JSON
+line a run from its ``metrics.jsonl`` (the times of epoch 2 and its val
+pass: epoch 1 pays the kernels' build and the communicators' set-up), and
+the comparison with the serial run.  Then, at each layout, every rank
+trains the serial Engine and the ShardedEngine for an epoch on its own
+GPU and holds the sharded engine's first-step gradients (after the sum
+over dp: NCCL's all-reduce, and its reduce-scatter in the table's
+backward) to the serial ones.
 
     python3 sharded_multi_gpu.py --layouts 1x4,2x2,4x1
 
-A layout at dp = 1 draws the serial dropout masks, so its loss sums and
-val MRRs must equal the serial run's; at dp > 1 each dp index draws its own, and
-the difference is reported.  Exits 1 when a run fails or a dp = 1 layout
-differs.  ``--device cpu`` runs every arm on the CPU over gloo (a rehearsal
-at a small ``--data``).
+A layout at dp = 1 must equal the serial run; at dp > 1 the losses and
+val MRRs must be within chip_smoke.py's TWO_RANK_BOUND of it, and the
+first-step gradients within its GRAD_RTOL on every rank.  Exits 1 when a
+run fails or a check misses.  ``--device cpu`` runs every arm on the CPU
+over gloo (a rehearsal at a small ``--data``).
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+from chip_smoke import (GRAD_RTOL, TWO_RANK_BOUND,  # noqa: E402
+                        first_step_grads, grad_gap)
 
 
 def _run(cmd, log_dir, timeout):
@@ -44,6 +52,66 @@ def _run(cmd, log_dir, timeout):
                 val_s=val[-1]["seconds"])
 
 
+def _dropout_zero(config, tmp):
+    """A copy of ``config`` with its train dropouts set to 0."""
+    with open(config) as f:
+        text = f.read()
+    text, n = re.subn(r"^(\s*(?:att_)?dropout:)\s*\S+", r"\1 0.0", text,
+                      flags=re.M)
+    if n != 2:
+        raise ValueError(f"{config}: expected dropout and att_dropout")
+    path = os.path.join(tmp, "dropout0.yml")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def grad_worker(data_name, config, dp, state, device, out_dir) -> int:
+    """One rank under torch.distributed.run: the serial Engine's and the
+    ShardedEngine's first-step gradients on this rank's device; writes
+    the gap to ``out_dir``."""
+    import torch
+
+    from tgb_tgn_dgl_tpu_torch.data.dataset import synthetic
+    from tgb_tgn_dgl_tpu_torch.engine.train import Engine
+    from tgb_tgn_dgl_tpu_torch.parallel.engine import ShardedEngine
+    from tgb_tgn_dgl_tpu_torch.parallel.mesh import make_mesh
+    from tgb_tgn_dgl_tpu_torch.parallel.multihost import init_distributed
+    from tgb_tgn_dgl_tpu_torch.run_tgn import rank_device
+    from tgb_tgn_dgl_tpu_torch.utils.config import parse_config
+    world = int(os.environ["WORLD_SIZE"])
+    rank = int(os.environ["RANK"])
+    backend = "gloo" if device == "cpu" else "nccl"
+    if backend == "nccl":
+        device = rank_device(None, world, int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(device)
+    else:
+        torch.set_num_threads(1)
+    init_distributed("env://", world, rank, backend)
+    try:
+        data, cfg = synthetic(data_name), parse_config(config)
+        grads = {}
+        for name, make in (
+                ("serial", lambda: Engine(data, cfg, device=device)),
+                ("sharded", lambda: ShardedEngine(
+                    data, cfg, mesh=make_mesh(dp=dp, state=state,
+                                              backend=backend),
+                    device=device))):
+            eng = make()
+            eng.warm_buckets()
+            eng._warmed = True
+            grads[name] = first_step_grads(eng)
+            eng.train_epoch()
+            del eng
+        gap = grad_gap(grads["sharded"], grads["serial"])
+        with open(os.path.join(out_dir, f"grad{rank}.json"), "w") as f:
+            json.dump(dict(rank=rank, device=device, grad_gap=gap), f)
+    finally:
+        import torch.distributed as dist
+        dist.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--layouts", default="1x4,2x2,4x1",
@@ -54,36 +122,60 @@ def main() -> int:
     ap.add_argument("--device", default=None,
                     help="'cpu' for a gloo rehearsal; default the GPUs")
     ap.add_argument("--timeout", type=int, default=600)
+    ap.add_argument("--grad-worker", nargs=3, default=None,
+                    metavar=("DP", "STATE", "OUT_DIR"),
+                    help="(internal) one rank of the gradient check")
     args = ap.parse_args()
-    cli = ["-m", "tgb_tgn_dgl_tpu_torch.run_tgn", "--data", args.data,
-           "--synthetic", "--config", args.config, "--epochs", "2"]
-    if args.device:
-        cli += ["--device", args.device]
+    if args.grad_worker:
+        dp, state, out_dir = args.grad_worker
+        return grad_worker(args.data, args.config, int(dp), int(state),
+                           args.device, out_dir)
     ok = True
     with tempfile.TemporaryDirectory(prefix="sharded_multi_gpu_") as tmp:
-        serial = _run([sys.executable] + cli, os.path.join(tmp, "serial"),
-                      args.timeout)
-        print(json.dumps(dict(run="serial", **serial)), flush=True)
+        config = _dropout_zero(args.config, tmp)
+        cli = ["-m", "tgb_tgn_dgl_tpu_torch.run_tgn", "--data", args.data,
+               "--synthetic", "--config", config, "--epochs", "2"]
+        dev = ["--device", args.device] if args.device else []
+        serial = _run([sys.executable] + cli + dev,
+                      os.path.join(tmp, "serial"), args.timeout)
+        print(json.dumps(dict(run="serial", dropout=0.0, **serial)),
+              flush=True)
         for layout in args.layouts.split(","):
             dp, state = (int(x) for x in layout.split("x"))
-            cmd = [sys.executable, "-m", "torch.distributed.run",
-                   "--standalone", "--nproc-per-node", str(dp * state)] + \
-                cli + ["--engine", "sharded", "--dp", str(dp),
-                       "--state-ax", str(state)]
-            rec = _run(cmd, os.path.join(tmp, layout), args.timeout)
-            rec.update(loss_rel_diff=[abs(a - b) / abs(b) for a, b in
-                                      zip(rec["loss"], serial["loss"])],
-                       val_diff=[a - b for a, b in zip(rec["val"],
-                                                       serial["val"])],
-                       train_s_over_serial=rec["train_s"]
-                       / serial["train_s"],
-                       val_s_over_serial=rec["val_s"] / serial["val_s"])
+            launch = [sys.executable, "-m", "torch.distributed.run",
+                      "--standalone", "--nproc-per-node", str(dp * state)]
+            rec = _run(launch + cli + dev + [
+                "--engine", "sharded", "--dp", str(dp), "--state-ax",
+                str(state)], os.path.join(tmp, layout), args.timeout)
+            loss_rel = [abs(a - b) / abs(b)
+                        for a, b in zip(rec["loss"], serial["loss"])]
+            val_abs = [abs(a - b) for a, b in zip(rec["val"], serial["val"])]
+            out_dir = os.path.join(tmp, f"grad_{layout}")
+            os.makedirs(out_dir)
+            subprocess.run(launch + [os.path.abspath(__file__), "--data",
+                                     args.data, "--config", config, *dev,
+                                     "--grad-worker", str(dp), str(state),
+                                     out_dir],
+                           cwd=ROOT, check=True, timeout=args.timeout)
+            gaps = []
+            for r in range(dp * state):
+                with open(os.path.join(out_dir, f"grad{r}.json")) as f:
+                    gaps.append(json.load(f)["grad_gap"])
             equal = (rec["loss"], rec["val"]) == (serial["loss"],
                                                  serial["val"])
-            print(json.dumps(dict(run="sharded", dp=dp, state=state,
-                                  equal_to_serial=equal, **rec)),
-                  flush=True)
-            ok = ok and (equal or dp > 1)
+            within = (max(loss_rel) <= TWO_RANK_BOUND["loss_rel"]
+                      and max(val_abs) <= TWO_RANK_BOUND["mrr_abs"]
+                      and max(gaps) <= GRAD_RTOL)
+            passed = equal if dp == 1 else within
+            print(json.dumps(dict(
+                run="sharded", dp=dp, state=state, dropout=0.0,
+                equal_to_serial=equal, **rec, loss_rel_diff=loss_rel,
+                val_abs_diff=val_abs, first_step_grad_gap=gaps,
+                bound=TWO_RANK_BOUND, grad_rtol=GRAD_RTOL, passed=passed,
+                train_s_over_serial=rec["train_s"] / serial["train_s"],
+                val_s_over_serial=rec["val_s"] / serial["val_s"])),
+                flush=True)
+            ok = ok and passed
     return 0 if ok else 1
 
 

@@ -13,10 +13,11 @@ batch 100, 1,000 events):
   * ``--engine multihost --hosts 2 --exchange owned`` prints the JAX
     CLI's lines (its ``engine:`` line among them) and trains through the
     port's ``MultiHostEngine``;
-  * without a GPU and without ``--device``, ``main`` raises; ``--engine
-    sharded`` raises NotImplementedError; a dataset that is not under
-    ``--root`` falls back to the synthetic stream with run_tgn.py's note
-    on stderr;
+  * ``--eval-every 2`` runs the val pass after the second epoch alone;
+  * under NCCL each rank of ``--engine sharded`` takes its own card;
+  * without a GPU and without ``--device``, ``main`` raises; a dataset
+    that is not under ``--root`` falls back to the synthetic stream with
+    run_tgn.py's note on stderr;
   * on the GPU (``cuda``-marked, skipped here): without ``--device`` the
     CLI trains and tests on the card, through the kernels.
 """
@@ -156,6 +157,13 @@ def test_profile_traces_the_first_epoch_with_the_same_arguments(files):
     assert _events(run) == ["train_epoch", "val", "checkpoint"] * 2
 
 
+def test_eval_every_runs_the_val_pass_every_nth_epoch(files):
+    out = main(_args(files, "--epochs", "2", "--eval-every", "2",
+                     "--device", "cpu"))
+    assert _events(files / "run") == ["train_epoch", "train_epoch", "val"]
+    assert len(out["histories"][0]["val"]) == 1
+
+
 def test_main_needs_a_gpu_unless_asked_for_the_cpu(files):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -175,6 +183,18 @@ def test_parallel_engines_are_not_ported(files, engine, capsys):
     assert ("engine: sharded over mesh {'dp': 1, 'state': 1} (gloo)"
             in capsys.readouterr().out)
     assert len(out["histories"][0]["loss"]) == 1
+
+
+def test_sharded_ranks_take_their_own_card():
+    """Under NCCL a bare ``cuda`` is the rank's own card; a card named for
+    a world of several ranks is refused unless it is the rank's."""
+    from tgb_tgn_dgl_tpu_torch.run_tgn import rank_device
+    assert rank_device(None, 2, 1) == "cuda:1"
+    assert rank_device("cuda", 2, 1) == "cuda:1"
+    assert rank_device("cuda:1", 2, 1) == "cuda:1"
+    assert rank_device("cuda:0", 1, 0) == "cuda:0"
+    with pytest.raises(ValueError, match="several ranks on one card"):
+        rank_device("cuda:0", 2, 1)
 
 
 def test_multihost_prints_the_jax_cli_lines(files, capsys, monkeypatch):

@@ -62,6 +62,7 @@ FIT_DATA = dict(name="sharded-fit", num_edges=768, num_nodes=96, msg_dim=4,
 RTOL = 2e-4          # tests/test_parallel.py:126-127
 MRR_ATOL = 1e-6
 CKPT_REL = 1e-5      # tests/test_parallel.py:320
+GRAD_RTOL = 1e-5     # the first step's gradient vector, norm-relative
 
 
 def _raw(family, dropout=0.0, **train):
@@ -117,20 +118,39 @@ for job in spec["jobs"]:
             eng = engine()
         elif op == "load":
             eng.load_checkpoint(os.path.join(tmp, args[0]))
+        elif op == "capture":
+            # the gradients the optimizer is handed first (after the dp sum)
+            grads, step = {}, eng.optimizer.step
+
+            def first(*a, step=step, grads=grads, eng=eng, **k):
+                if not grads:
+                    grads.update({n: p.grad.clone() for n, p in
+                                  eng.model.named_parameters()
+                                  if p.grad is not None})
+                return step(*a, **k)
+            eng.optimizer.step = first
+        elif op == "grads":
+            rec.append(grads)
         elif op == "state":
             mem = eng.full_memory_state() if eng.use_memory else None
             rec.append(dict(params=eng.model.state_dict(),
                             mem=None if mem is None else mem._asdict(),
                             packer=eng.packer.snapshot()))
         elif op == "fit":
+            # one fit call an entry of "calls" (its epochs), all with one
+            # early-stop monitor, as the CLI's --profile path calls it
             kw = dict(args[0])
-            kw["log_dir"] = kw["checkpoint_dir"] = os.path.join(tmp, "fit")
+            calls = kw.pop("calls")
+            kw["log_dir"] = kw["checkpoint_dir"] = os.path.join(
+                tmp, kw.pop("dir"))
             kw["early_stop"] = EarlyStopMonitor(
-                max_round=kw.pop("patience"), save_dir=kw["log_dir"])
-            lines = []
-            hist = eng.fit(log=lines.append, **kw)
-            rec.append(dict(hist=hist, lines=lines, epoch=eng._epoch,
-                            params=eng.model.state_dict()))
+                max_round=kw.pop("patience"),
+                tolerance=kw.pop("tolerance", 1e-10), save_dir=kw["log_dir"])
+            lines, hists = [], []
+            for epochs in calls:
+                hists.append(eng.fit(epochs=epochs, log=lines.append, **kw))
+            rec.append(dict(hist=hists[0], hists=hists, lines=lines,
+                            epoch=eng._epoch, params=eng.model.state_dict()))
     out.append(rec)
 torch.save(out, os.path.join(tmp, "out%d.pt" % rank))
 dist.destroy_process_group()
@@ -198,8 +218,8 @@ def _assert_mem_equal(eng, mem):
 
 
 # ---------------------------------------------------------- the 4-rank run
-DP2_OPS = [["epoch"], ["save", "ckpt.pt"], ["snap"], ["val"], ["restore"],
-           ["chunked"], ["epoch"], ["val"], ["test"], ["state"]]
+DP2_OPS = [["capture"], ["epoch"], ["save", "ckpt.pt"], ["snap"], ["val"],
+           ["restore"], ["chunked"], ["epoch"], ["val"], ["test"], ["state"]]
 RESUME_OPS = [["load", "ckpt.pt"], ["chunked"], ["epoch"], ["val"]]
 
 
@@ -208,9 +228,10 @@ def dp2(tmp_path_factory):
     """dp = 2, state = 2, dropout 0: memory (then resumed from its epoch-1
     checkpoint) and frozen."""
     tmp = tmp_path_factory.mktemp("dp2")
-    jobs = [dict(raw=_raw("memory"), data=DATA, ops=DP2_OPS + [["fresh"]]
+    jobs = [dict(raw=_raw("memory"), data=DATA, ops=DP2_OPS + [["grads"],
+                                                               ["fresh"]]
                  + RESUME_OPS),
-            dict(raw=_raw("frozen"), data=DATA, ops=DP2_OPS)]
+            dict(raw=_raw("frozen"), data=DATA, ops=DP2_OPS + [["grads"]])]
     return _run_ranks(tmp, 2, 2, jobs)
 
 
@@ -224,12 +245,21 @@ def serial_runs():
         for family in ("memory", "frozen"):
             eng = _serial(family)
             init = {k: v.clone() for k, v in eng.model.state_dict().items()}
+            grads, step = {}, eng.optimizer.step
+
+            def first(*a, step=step, grads=grads, eng=eng, **k):
+                if not grads:
+                    grads.update({n: p.grad.clone() for n, p in
+                                  eng.model.named_parameters()
+                                  if p.grad is not None})
+                return step(*a, **k)
+            eng.optimizer.step = first
             l1 = eng.train_epoch()["loss"]
             v1 = eng.evaluate("val")
             l2 = eng.train_epoch()["loss"]
             v2 = eng.evaluate("val")
             out[family] = dict(init=init, loss=(l1, l2), val=(v1, v2),
-                               test=eng.evaluate("test"))
+                               test=eng.evaluate("test"), grads=grads)
     return out
 
 
@@ -253,6 +283,23 @@ def test_dp2_state2_matches_the_serial_engine(dp2, serial_runs, family):
     for rank in dp2[1:]:
         assert _unpack(rank[job])["loss"] == got["loss"]
         assert _unpack(rank[job])["val2"] == got["val2"]
+
+
+@pytest.mark.parametrize("family", ["memory", "frozen"])
+def test_dp2_first_step_gradients_are_the_serial_ones(dp2, serial_runs,
+                                                      family):
+    """The gradient vector Adam takes at the first step, on every rank
+    (after the sum over dp), within GRAD_RTOL of the serial engine's in
+    norm, over every parameter at once.  Adam barely feels a gradient's
+    scale, so the losses alone can hide a wrong reduction: a gradient
+    averaged over dp in place of the sum is a gap of 0.5 here."""
+    want = serial_runs[family]["grads"]
+    for rank in dp2:
+        got = rank[0 if family == "memory" else 1][8]
+        assert set(got) == set(want)
+        diff = torch.cat([(got[k] - w).reshape(-1) for k, w in want.items()])
+        norm = torch.cat([w.reshape(-1) for w in want.values()]).norm()
+        assert float(diff.norm()) <= GRAD_RTOL * float(norm)
 
 
 @pytest.mark.parametrize("family", ["memory", "frozen"])
@@ -300,7 +347,7 @@ def test_dp2_checkpoint_resume_continues_the_run(dp2):
     equal the uninterrupted run's."""
     rec = dp2[0][0]
     got = _unpack(rec)
-    nbytes, (vc, l2, (v2, _)) = rec[1], rec[8:]
+    nbytes, (vc, l2, (v2, _)) = rec[1], rec[9:]
     assert nbytes > 0 and all(r[0][1] == 0 for r in dp2[1:])
     assert vc == pytest.approx(got["val_chunked"], rel=CKPT_REL)
     assert l2 == pytest.approx(got["loss"][1], rel=CKPT_REL)
@@ -427,10 +474,16 @@ def fit_run(tmp_path_factory):
                memory=[dict(dim_out=8, dim_time=8)],
                gnn=[dict(dim_out=8, att_head=2, dim_time=8)],
                train=[dict(batch_size=128, lr=1e-3, frozen_memory=False)])
-    kw = dict(epochs=4, eval_every=1, patience=1, checkpoint_every=1,
-              val_snapshot=True)
+    kw = dict(calls=[4], dir="fit", eval_every=1, patience=1,
+              checkpoint_every=1, val_snapshot=True)
+    # a second job: two fit calls with one monitor, patience 1, and a
+    # tolerance no later val pass beats, so the monitor stops at epoch 2
+    # whatever the val MRRs are
+    twice = dict(calls=[1, 3], dir="fit_twice", patience=1, tolerance=1e9)
     return tmp, _run_ranks(tmp, 2, 1, [dict(raw=raw, data=FIT_DATA,
-                                            ops=[["fit", kw]])])
+                                            ops=[["fit", kw]]),
+                                       dict(raw=raw, data=FIT_DATA,
+                                            ops=[["fit", twice]])])
 
 
 def test_fit_logs_and_writes_on_rank_zero_alone(fit_run):
@@ -463,6 +516,26 @@ def test_fit_takes_one_early_stop_decision_on_every_rank(fit_run):
                       weights_only=True)["params"]
     if r0["epoch"] < 4:          # stopped early: the best was restored
         _assert_params_equal(best, r0["params"])
+
+
+def test_fit_keeps_the_monitor_across_calls_on_every_rank(fit_run):
+    """Two fit calls with one monitor: every rank carries its counters
+    from the first call into the second, so both stop at epoch 2 and
+    restore epoch 1's parameters (rank 0 from model_best.pt, rank 1 from
+    memory)."""
+    tmp, runs = fit_run
+    r0, r1 = runs[0][1][0], runs[1][1][0]
+    for r in (r0, r1):
+        assert r["epoch"] == 2
+        assert [len(h["loss"]) for h in r["hists"]] == [1, 1]
+    for key in ("loss", "val"):
+        assert [h[key] for h in r0["hists"]] == [h[key] for h in r1["hists"]]
+    assert any("early stopping at epoch 2 (best epoch 1)" in l
+               for l in r0["lines"])
+    best = torch.load(tmp / "fit_twice" / "model_best.pt",
+                      weights_only=True)["params"]
+    _assert_params_equal(best, r0["params"])
+    _assert_params_equal(best, r1["params"])
 
 
 def test_fit_eval_every_skips_val_passes():

@@ -97,28 +97,39 @@ def _place(full: torch.Tensor, sl: slice, part: torch.Tensor):
     return torch.cat([full[:sl.start], part, full[sl.stop:]])
 
 
-class _HeldBest(EarlyStopMonitor):
-    """A rank > 0's twin of the caller's early-stop monitor: the same rule,
-    the best parameters held in memory instead of written."""
+class _HeldBest:
+    """A rank > 0's view of the caller's early-stop monitor.  It steps that
+    monitor, so its counters carry from one ``fit`` call to the next as
+    rank 0's do, but writes no file: the best parameters are held on the
+    engine, beside the monitor they belong to."""
 
-    def __init__(self, like: EarlyStopMonitor):
-        super().__init__(like.max_round, like.higher_better, like.tolerance,
-                         name=like.name)
-        self._best = None
+    def __init__(self, monitor: EarlyStopMonitor, engine: "ShardedEngine"):
+        self.monitor = monitor
+        self.engine = engine
 
-    def step_check(self, curr_val: float, state=None) -> bool:
-        stop = super().step_check(curr_val)
-        if state is not None and self.best_epoch == self.epoch_count:
-            self._best = {"params": {k: v.detach().clone()
-                                     for k, v in state["params"].items()}}
-        return stop
+    @property
+    def best_epoch(self) -> int:
+        return self.monitor.best_epoch
 
     @property
     def best_path(self) -> Optional[str]:
-        return None if self._best is None else "(held in memory)"
+        # rank 0 restores exactly when its monitor has a file to restore
+        return self.monitor.best_path
+
+    def step_check(self, curr_val: float, state=None) -> bool:
+        m = self.monitor
+        stop = m.step_check(curr_val)
+        if state is not None and m.best_epoch == m.epoch_count:
+            self.engine._held_best = (m, {
+                "params": {k: v.detach().clone()
+                           for k, v in state["params"].items()}})
+        return stop
 
     def load_best(self, template, device="cpu"):
-        return self._best
+        held = self.engine._held_best
+        assert held is not None and held[0] is self.monitor, \
+            "no best parameters held for this monitor"
+        return held[1]
 
 
 class ShardedEngine(Engine):
@@ -137,6 +148,8 @@ class ShardedEngine(Engine):
         self.shard = RowShard.of(data.num_nodes + 1, mesh)
         super().__init__(data, config, device=device)
         self._root_multiple = mesh.dp
+        # rank > 0: (the caller's early-stop monitor, its best parameters)
+        self._held_best = None
         if mesh.d:
             self.generator.manual_seed(config.train.seed + 1
                                        + mesh.d * DP_SEED_STRIDE)
@@ -244,15 +257,15 @@ class ShardedEngine(Engine):
             val_snapshot: bool = False):
         """``Engine.fit`` on every rank: rank 0 logs (each line tagged
         with the mesh, as JAX's ``[sharded {...}]``), writes the metrics
-        and the best model; another rank logs nothing and holds its best
-        parameters in memory.  Checkpoints gather on every rank and are
-        written by rank 0."""
+        and the best model; another rank logs nothing, steps the same
+        monitor and holds its best parameters in memory.  Checkpoints
+        gather on every rank and are written by rank 0."""
         if self.mesh.rank == 0:
             tag = f"[sharded {self.mesh.shape}] "
             return super().fit(epochs, lambda msg: log(tag + msg), eval_every,
                                early_stop, checkpoint_dir, checkpoint_every,
                                log_dir, val_snapshot)
-        held = None if early_stop is None else _HeldBest(early_stop)
+        held = None if early_stop is None else _HeldBest(early_stop, self)
         return super().fit(epochs, lambda msg: None, eval_every, held,
                            checkpoint_dir, checkpoint_every, None,
                            val_snapshot)

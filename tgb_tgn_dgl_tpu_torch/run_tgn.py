@@ -25,7 +25,9 @@ from ``torchrun``'s environment, or one process):
       -m tgb_tgn_dgl_tpu_torch.run_tgn --engine sharded --dp 2 ...
 
 with gloo under ``--device cpu`` and NCCL on ``cuda:LOCAL_RANK``
-otherwise; rank 0 alone prints and writes the logs.  When the named
+otherwise (a ``--device`` naming one card for several ranks raises); rank
+0 alone prints and writes the logs.  ``--eval-every N``, which run_tgn.py
+lacks, runs the val pass after every N-th epoch alone.  When the named
 dataset is not under ``--root``, a deterministic synthetic stream with its
 scale statistics stands in (a note on stderr says so).
 """
@@ -76,6 +78,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument("--patience", type=int, default=0,
                         help="early-stop after N non-improving validations "
                              "(0 = off)")
+    parser.add_argument("--eval-every", type=int, default=1,
+                        help="run the val pass after every N-th epoch")
     parser.add_argument("--profile", action="store_true",
                         help="capture a torch.profiler trace of the first "
                              "epoch trained into <log-dir>/profile")
@@ -119,7 +123,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     if backend == "nccl" and torch.cuda.is_available():
         # one card a process; without one the Engine raises, as the
         # serial one does
-        args.device = args.device or f"cuda:{local}"
+        args.device = rank_device(args.device, world, local)
         torch.cuda.set_device(args.device)
     init_distributed("env://", world, rank, backend)
     try:
@@ -131,6 +135,22 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
         if world > 1:
             import torch.distributed as dist
             dist.destroy_process_group()
+
+
+def rank_device(device: Optional[str], world: int, local: int) -> str:
+    """The card of the process with local rank ``local`` under NCCL: a bare
+    ``cuda`` (or none) is ``cuda:local``; a card named for a world of more
+    than one process raises ValueError unless it is that one (NCCL refuses
+    two ranks on one card)."""
+    import torch
+    dev = torch.device(device or "cuda")
+    if dev.index is None:
+        return f"cuda:{local}"
+    if world > 1 and dev.index != local:
+        raise ValueError(f"--device {device} would put several ranks on one "
+                         f"card (NCCL refuses that); give --device cuda: "
+                         f"each rank takes cuda:LOCAL_RANK")
+    return str(dev)
 
 
 def _run(args, backend: Optional[str] = None,
@@ -179,7 +199,8 @@ def _run(args, backend: Optional[str] = None,
     if args.patience:
         early = EarlyStopMonitor(max_round=args.patience,
                                  save_dir=args.log_dir)
-    kw = dict(early_stop=early, checkpoint_dir=args.log_dir,
+    kw = dict(eval_every=args.eval_every, early_stop=early,
+              checkpoint_dir=args.log_dir,
               checkpoint_every=args.checkpoint_every, log_dir=args.log_dir,
               val_snapshot=args.val_snapshot)
     start = time.time()
