@@ -8,8 +8,8 @@ device, phase by phase, one JSON line per phase:
 
   device     the card (nvidia-smi name and power limit), TF32 off, the
              kernels built from csrc/ with nvcc and the host libraries
-             (csrc/packer.cpp, csrc/owned_state.cpp) with g++ at once, the
-             build times and the g++ version
+             (csrc/packer.cpp, csrc/owned_state.cpp, csrc/hostops.cpp) with
+             g++ at once, the build times and the g++ version
   kernels    each attention kernel at the main path's shapes and at shapes
              that reach its other routes (H % 4 != 0, a long row, a
              misaligned el'), against its plain torch version on the same
@@ -40,6 +40,19 @@ device, phase by phase, one JSON line per phase:
              is held within 1e-4 (its Δt-encoding columns within 1e-3),
              and DyRep's val pass also runs by column chunks from the
              state after training
+  uniform_reference
+             sampling.strategy 'uniform' (the numpy packer with the
+             t-CSR's draws, csrc/hostops.cpp) on the tiny stream, frozen
+             and with the memory: GPU against CPU as in memory_reference,
+             every host wire of both runs equal, the val and test passes
+             by column chunks (the gate closes), the dropout-0 pair once a
+             step and the inference forward once a chunk
+  bf16_reference
+             train.compute_dtype bfloat16 on the tiny stream, frozen and
+             with the memory: GPU against CPU, per-step losses within
+             1e-3 (tests/test_torch_bf16.py's tolerance), then from the
+             CPU run's weights and memory the slot-unique val pass on
+             both (bf16 embedding tables), MRR within 1e-3
   device_cache_reference
              device-cache mode (train.device_cache) on the tiny stream,
              frozen and with the memory: GPU against CPU as in
@@ -125,6 +138,22 @@ device, phase by phase, one JSON line per phase:
   memory_eval, memory_eval_unique_vs_chunked
              its val pass and the comparison, which also holds the
              MemoryStates after both passes equal (mem within 1e-4)
+  uniform_train
+             configs/TGN.yml with sampling.strategy 'uniform' at full
+             width: the whole train split (each batch packed on the main
+             thread by the numpy packer: fetch_s is the pack), then the
+             val pass by column chunks over its first batch with all 999
+             negatives, beside the 'recent' arm of the train and
+             eval_unique_vs_chunked phases
+  bf16_train configs/TGN.yml and configs/TGN-memory.yml at full width, each
+             with compute_dtype float32 and bfloat16: the whole train
+             split and the slot-unique val pass; edges/s, disp_s, peak
+             memory, loss sum and MRR of each arm (fails on a non-finite
+             loss or MRR only)
+  remat_train
+             configs/TGN-memory.yml at full width with train.remat off and
+             on under deterministic algorithms: parameters and MemoryState
+             bit-equal after the train split; peak memory and edges/s
   device_cache_train, device_cache_eval, device_cache_memory_train,
   device_cache_memory_eval
              configs/TGN.yml and configs/TGN-memory.yml with
@@ -261,6 +290,10 @@ device, phase by phase, one JSON line per phase:
              forward once an embed chunk of the TGN-memory.yml arms' val
              passes), on the sharded paths (world size 1: the serial CLI
              arm's launches; dp = 2, rank 0: the dropout-0 serial arm's),
+             on the knobs' paths ('uniform': the dropout pair 56 times an
+             epoch, the inference forward once a column chunk; bf16, frozen
+             and memory: the float32 arm's counts; remat:
+             attention_fwd_drop twice a step, attention_bwd_drop once),
              each path's counts set to 0 just before it; the kernel table
              sums them
   profile    torch.profiler over 4 train steps and one val batch (by the
@@ -291,6 +324,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import gc
 import json
 import os
 import statistics
@@ -602,16 +636,20 @@ def _recording_engine(pkg, raw, dev):
     return eng, _recorder(eng)
 
 
-def _gpu_and_cpu(pkg, raw, protocol="slot_unique", chunked=False):
+def _gpu_and_cpu(pkg, raw, protocol="slot_unique", chunked=False,
+                 on_engine=None):
     """Train one epoch and run the val pass, then the test pass, of the
     tiny stream on the GPU and on the CPU from the same seed (so the same
     weights), the val pass by ``protocol``; returns {device: (per-step
     losses, val MRR, engine, test MRR)}.  With ``chunked`` each device
     first runs the val pass by column chunks from the state after
-    training and restores that state; its MRR ends the tuple."""
+    training and restores that state; its MRR ends the tuple.
+    ``on_engine(device, engine)`` sees each engine before it trains."""
     out = {}
     for dev in ("cuda", "cpu"):
         eng, losses = _recording_engine(pkg, raw, dev)
+        if on_engine is not None:
+            on_engine(dev, eng)
         eng.train_epoch()
         extra = ()
         if chunked:
@@ -693,17 +731,19 @@ def _state_diff(torch, got, want, te_tol=MEM_TOL):
 
 def phase_memory_reference(torch, pkg, phase="memory_reference",
                            raw=MEMORY_RAW, protocol="slot_unique",
-                           chunked=False):
+                           chunked=False, on_engine=None, extra=None):
     """The reference phase with the mailbox memory: losses and MRRs as
     there, and the final memory state (after the val and test passes)
     equal: mem within MEM_TOL, DyRep's computed mail within MEM_TOL (its
     Δt-encoding columns within MAIL_TE_TOL), the other fields exactly.
     With ``chunked`` each device also runs the val pass by column chunks
     from the state after training, first, and its MRR must agree too.
-    Returns the GPU run's launches of each kernel and its steps."""
+    ``on_engine`` goes to ``_gpu_and_cpu``; ``extra()`` returns fields to
+    report and whether its own check passed.  Returns the GPU run's
+    launches of each kernel and its steps."""
     from tgb_tgn_dgl_tpu_torch.ops import attention
     attention.reset_launch_counts()
-    out = _gpu_and_cpu(pkg, raw, protocol, chunked)
+    out = _gpu_and_cpu(pkg, raw, protocol, chunked, on_engine)
     launches = dict(attention.launch_counts)   # the CPU run launches none
     res, ok = _compare_runs(phase, out)
     sg, sc = out["cuda"][2].mem_state, out["cpu"][2].mem_state
@@ -715,6 +755,10 @@ def phase_memory_reference(torch, pkg, phase="memory_reference",
         res.update(chunked_mrr_gpu=cg, chunked_mrr_cpu=cc)
         ok = ok and abs(cg - cc) <= MRR_TOL and abs(cg - out["cuda"][1]) \
             <= MRR_TOL
+    if extra is not None:
+        fields, good = extra()
+        res.update(fields)
+        ok = ok and good
     emit(res)
     if not ok or not same or res["valid_mail"] == 0:
         raise AssertionError(f"{phase}: GPU and CPU memory engines disagree")
@@ -774,6 +818,150 @@ def phase_dyrep_reference(torch, pkg):
     if pair != {k: steps for k in pair} or not launches[
             "attention_fwd_infer"]:
         raise AssertionError(f"dyrep_reference: {launches} in {steps} steps")
+
+
+# 'uniform' sampling (the numpy packer with the t-CSR of the stream)
+UNIFORM_RAW = dict(REFERENCE_RAW, sampling=[dict(
+    REFERENCE_RAW["sampling"][0], strategy="uniform")])
+
+
+def _wire_recorder(eng):
+    """Wrap ``eng._pack_wire`` (every batch and chunk is packed there on
+    the main thread under 'uniform'): the host wires, in order."""
+    wires, pack = [], eng._pack_wire
+
+    def rec(args, kw):
+        out = pack(args, kw)
+        wires.append(out)
+        return out
+
+    eng._pack_wire = rec
+    return wires
+
+
+def _unequal_wires(a, b):
+    """Indices of two lists of (host wire, intra width) that differ in
+    type, width or any field (and -1 when the lengths differ)."""
+    import numpy as np
+    bad = [] if len(a) == len(b) else [-1]
+    for i, ((wa, ia), (wb, ib)) in enumerate(zip(a, b)):
+        same = ia == ib and type(wa) is type(wb) and all(
+            (x is None) == (y is None)
+            and (x is None or (np.asarray(x).dtype == np.asarray(y).dtype
+                               and np.array_equal(x, y)))
+            for x, y in zip(wa, wb))
+        if not same:
+            bad.append(i)
+    return bad
+
+
+def phase_uniform_reference(torch, pkg):
+    """sampling.strategy 'uniform' on the tiny stream at dropout 0, frozen
+    and with the memory: the GPU engine against the CPU engine.  Both pack
+    on the host with the numpy packer and the same t-CSR draws, so every
+    wire (train batches, then each column chunk of the val and test
+    passes: the gate closes) must be equal; losses, MRRs and the memory
+    state as in memory_reference.  The dropout-0 pair once a step, the
+    inference forward once a column chunk."""
+    from tgb_tgn_dgl_tpu_torch.ops import attention
+    for label, raw in (("frozen", UNIFORM_RAW),
+                       ("memory", dict(MEMORY_RAW,
+                                       sampling=UNIFORM_RAW["sampling"]))):
+        wires = {}
+
+        def on_engine(dev, eng):
+            wires[dev] = _wire_recorder(eng)
+
+        def extra():
+            bad = _unequal_wires(wires["cuda"], wires["cpu"])
+            return (dict(arm=label, wires=len(wires["cuda"]),
+                         unequal_wires=bad), not bad)
+
+        if label == "memory":
+            launches, steps = phase_memory_reference(
+                torch, pkg, "uniform_reference", raw, "column_chunk",
+                on_engine=on_engine, extra=extra)
+        else:
+            attention.reset_launch_counts()
+            out = _gpu_and_cpu(pkg, raw, "column_chunk", on_engine=on_engine)
+            launches = dict(attention.launch_counts)
+            res, ok = _compare_runs("uniform_reference", out)
+            fields, good = extra()
+            res.update(fields, launches_gpu=launches)
+            emit(res)
+            if not (ok and good):
+                raise AssertionError("uniform_reference: GPU and CPU "
+                                     "engines disagree")
+            steps = res["steps"]
+        chunks = len(wires["cuda"]) - steps
+        want = dict(attention_fwd=steps, attention_bwd=steps,
+                    attention_fwd_drop=0, attention_bwd_drop=0,
+                    attention_fwd_infer=chunks)
+        if launches != want:
+            raise AssertionError(f"uniform_reference ({label}): launches "
+                                 f"{launches}, expected {want}")
+
+
+# bfloat16 compute against the CPU port: the engine tolerance of
+# tests/test_torch_bf16.py, ENGINE_LOSS_TOL (one bf16 rounding step is
+# 2^-8 of a value, and cuBLAS and the CPU's bf16 matmuls sum in their own
+# order before it)
+BF16_LOSS_TOL = 1e-3
+
+
+def phase_bf16_reference(torch, pkg):
+    """train.compute_dtype bfloat16 on the tiny stream at dropout 0, frozen
+    and with the memory: the GPU engine (the fp32 kernels behind the bf16
+    casts) against the CPU engine, per-step losses within BF16_LOSS_TOL;
+    then from the CPU engine's weights and memory state the slot-unique
+    val pass on both, its embedding tables in bf16, MRR within MRR_TOL.
+    The dropout-0 pair once a step, the inference forward once an embed
+    chunk."""
+    from tgb_tgn_dgl_tpu_torch.ops import attention
+    for label, raw in (("frozen", REFERENCE_RAW), ("memory", MEMORY_RAW)):
+        raw = _with_train(raw, compute_dtype="bfloat16")
+        runs = {}
+        attention.reset_launch_counts()       # the CPU run launches none
+        for dev in ("cuda", "cpu"):
+            eng, losses = _recording_engine(pkg, raw, dev)
+            eng.train_epoch()
+            runs[dev] = (eng, losses)
+        g, lg = runs["cuda"]
+        c, lc = runs["cpu"]
+        g.model.load_state_dict(c.model.state_dict())
+        if g.use_memory:
+            g.mem_state = type(c.mem_state)(*(t.to("cuda")
+                                              for t in c.mem_state))
+        tables = []
+        counts = g._unique_counts
+
+        def spy(emb, *args):
+            tables.append(str(emb.dtype))
+            return counts(emb, *args)
+
+        g._unique_counts = spy
+        mg = g.evaluate("val")
+        launches = dict(attention.launch_counts)
+        mc = c.evaluate("val")
+        loss_err = max(abs(a - b) for a, b in zip(lg, lc))
+        res = dict(phase="bf16_reference", arm=label, steps=len(lg),
+                   losses_gpu=lg, losses_cpu=lc, max_loss_diff=loss_err,
+                   loss_tol=BF16_LOSS_TOL, mrr_gpu=mg, mrr_cpu=mc,
+                   mrr_tol=MRR_TOL, protocol=g.last_eval_trace["protocol"],
+                   table_dtypes=sorted(set(tables)), launches_gpu=launches)
+        emit(res)
+        want = dict(attention_fwd=len(lg), attention_bwd=len(lg),
+                    attention_fwd_drop=0, attention_bwd_drop=0,
+                    attention_fwd_infer=g.last_eval_trace["embed_chunks"])
+        if not (len(lg) == 6 and all(abs(a - b) <= BF16_LOSS_TOL * (1 + abs(b))
+                                     for a, b in zip(lg, lc))
+                and abs(mg - mc) <= MRR_TOL
+                and res["protocol"] == "slot_unique"
+                and res["table_dtypes"] == ["torch.bfloat16"]
+                and launches == want):
+            raise AssertionError(f"bf16_reference ({label}): GPU and CPU "
+                                 f"disagree, or launches {launches} != "
+                                 f"{want}")
 
 
 def _fields_differ(torch, got, want):
@@ -1128,6 +1316,210 @@ def phase_eval(torch, eng, phase="eval", closed_by=None):
                              f"{rec['protocol']} protocol, the gate closed "
                              f"by {res['gate_closed_by']}")
     return res
+
+
+# the 'uniform' arm's val pass: its first batch only (its numpy packs of
+# 46 column chunks take a second each on the host, PERF.md)
+UNIFORM_VAL_BATCHES = 1
+
+
+def _full_width(pkg, cfg_path, **train):
+    """A config file with ``train`` keys replaced, the whole train split."""
+    cfg = pkg.parse_config(cfg_path)
+    for k, v in dict(train, sanity_batches=0).items():
+        setattr(cfg.train, k, v)
+    return cfg
+
+
+def _train_arm(torch, pkg, data, cfg):
+    """A fresh engine of ``cfg`` trained one epoch: (engine, stats, trace
+    record, peak GiB of the engine's build and epoch above what was
+    allocated before it).  Engines of earlier arms that only a reference
+    cycle still holds are collected first; the record's
+    ``held_before_gb`` is what stayed allocated."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eng = pkg.Engine(data, cfg)
+    rec = _timed_first_step(torch, eng)
+    torch.cuda.synchronize()
+    rec["start"].record()
+    stats = eng.train_epoch()
+    torch.cuda.synchronize()
+    times = _train_times(stats, eng.last_epoch_trace, rec,
+                         cfg.train.batch_size)
+    return (eng, stats, dict(times, steps=eng.last_epoch_trace["batches"],
+                             held_before_gb=held / 2**30),
+            (torch.cuda.max_memory_allocated() - held) / 2**30)
+
+
+def phase_uniform_train(torch, pkg, attention, data, cfg_path, recent):
+    """configs/TGN.yml with sampling.strategy 'uniform' at full width: the
+    whole train split (56 steps at dropout 0.2), every batch packed on the
+    main thread by the numpy packer with the t-CSR (``fetch_s`` is that
+    whole pack), then the val pass by column chunks (the gate closes) over
+    its first UNIFORM_VAL_BATCHES batches with all 999 negatives.  Beside
+    the 'recent' arm of this call (``recent``: the train phase's record and
+    the frozen column-chunk val pass).  Returns the launches (the dropout
+    pair once a step, the inference forward once a chunk) and the
+    expected ones."""
+    import itertools
+    import math
+
+    from tgb_tgn_dgl_tpu_torch.engine.train import UNIFORM_GATE
+    attention.reset_launch_counts()
+    cfg = _full_width(pkg, cfg_path)
+    cfg.sampling.strategy = "uniform"
+    t0 = time.perf_counter()
+    eng, stats, tr, peak = _train_arm(torch, pkg, data, cfg)
+    batches = eng._iter_batches
+
+    def first_val_batches(split):
+        it = batches(split)
+        return itertools.islice(it, UNIFORM_VAL_BATCHES) if split == "val" \
+            else it
+
+    eng._iter_batches = first_val_batches
+    mrr, seconds, erec, vpeak = _val_pass(torch, eng)
+    counts = dict(attention.launch_counts)
+    train_rec, chunked = recent
+    res = dict(phase="uniform_train", strategy="uniform",
+               events=stats["events"], loss_sum=stats["loss"],
+               ap=stats["ap"], auc=stats["auc"], **tr, peak_mem_gb=peak,
+               val_batches=erec["batches"], val_chunks=erec["chunks"],
+               val_seconds=seconds,
+               val_seconds_per_chunk=seconds / max(erec["chunks"], 1),
+               val_fetch_s=erec["fetch_s"], val_disp_s=erec["disp_s"],
+               val_mrr_first_batches=mrr,
+               val_peak_mem_gb=vpeak - tr["held_before_gb"],
+               gate_closed_by=sorted(eng._eval_gate_logged),
+               phase_s=time.perf_counter() - t0, launches=counts,
+               recent=dict(edges_per_s=train_rec["edges_per_s"],
+                           fetch_s=train_rec["fetch_s"],
+                           disp_s=train_rec["disp_s"],
+                           peak_mem_gb=train_rec["peak_mem_gb"],
+                           loss_sum=train_rec["loss_sum"],
+                           column_chunk_seconds_per_chunk=chunked[
+                               "seconds_column_chunk"] / chunked[
+                               "column_chunk"]["chunks"]))
+    res["edges_per_s_vs_recent"] = (res["edges_per_s"]
+                                    / train_rec["edges_per_s"])
+    emit(res)
+    want = dict(attention_fwd=0, attention_bwd=0,
+                attention_fwd_drop=tr["steps"], attention_bwd_drop=tr["steps"],
+                attention_fwd_infer=erec["embed_chunks"])
+    if not (math.isfinite(stats["loss"]) and 0.0 < mrr <= 1.0
+            and erec["protocol"] == "column_chunk"
+            and res["gate_closed_by"] == [UNIFORM_GATE]):
+        raise AssertionError("uniform_train: a non-finite loss, an MRR "
+                             "outside (0, 1] or another protocol")
+    return counts, want
+
+
+def phase_bf16_train(torch, pkg, attention, data, paths):
+    """configs/TGN.yml and configs/TGN-memory.yml at full width, each with
+    compute_dtype float32 and bfloat16 in this call, in turns (float32,
+    bfloat16, bfloat16, float32): the whole train split at the config's
+    dropout, and after each dtype's first epoch the slot-unique val pass
+    (bf16: its embedding table in bf16).  Edges/s, disp_s and peak
+    memory of all four epochs (each peak above what was allocated before
+    its engine, ``_train_arm``; the val pass's too), the loss sum and the
+    val MRR; fails only on a
+    non-finite loss or MRR (a full-width MRR bound would sit inside the
+    trajectory's own noise, PERF.md).  Returns each bf16 arm's launches
+    (its first epoch and val pass) and, as expected, its float32 arm's."""
+    import math
+    counts, want = {}, {}
+    for label, cfg_path in paths:
+        arms = {}
+        for dtype in ("float32", "bfloat16", "bfloat16", "float32"):
+            attention.reset_launch_counts()
+            cfg = _full_width(pkg, cfg_path, compute_dtype=dtype)
+            eng, stats, tr, peak = _train_arm(torch, pkg, data, cfg)
+            if dtype in arms:               # the second epoch: its speed
+                arms[dtype]["edges_per_s_again"] = tr["edges_per_s"]
+                arms[dtype]["disp_s_again"] = tr["disp_s"]
+                arms[dtype]["peak_mem_gb_again"] = peak
+                del eng
+                continue
+            mrr, seconds, erec, vpeak = _val_pass(torch, eng)
+            arms[dtype] = dict(loss_sum=stats["loss"], **tr,
+                               peak_mem_gb=peak, val_mrr=mrr,
+                               val_seconds=seconds,
+                               val_peak_mem_gb=vpeak - tr["held_before_gb"],
+                               val_protocol=erec["protocol"],
+                               embed_chunks=erec["embed_chunks"],
+                               launches=dict(attention.launch_counts))
+            del eng
+        counts[f"bf16_{label}"] = arms["bfloat16"]["launches"]
+        want[f"bf16_{label}"] = arms["float32"]["launches"]
+        b, f = arms["bfloat16"], arms["float32"]
+
+        def mean_rate(a):
+            return (a["edges_per_s"] + a["edges_per_s_again"]) / 2
+
+        emit(dict(phase="bf16_train", arm=label, float32=f, bfloat16=b,
+                  edges_per_s_vs_float32=mean_rate(b) / mean_rate(f),
+                  peak_vs_float32=(b["peak_mem_gb"] + b["peak_mem_gb_again"])
+                  / (f["peak_mem_gb"] + f["peak_mem_gb_again"]),
+                  val_seconds_vs_float32=b["val_seconds"] / f["val_seconds"]))
+        if not all(math.isfinite(a["loss_sum"]) and 0.0 < a["val_mrr"] <= 1.0
+                   for a in arms.values()):
+            raise AssertionError(f"bf16_train ({label}): a non-finite loss "
+                                 f"or an MRR outside (0, 1]")
+    return counts, want
+
+
+def phase_remat_train(torch, pkg, attention, data, cfg_path):
+    """configs/TGN-memory.yml at full width with train.remat off and on in
+    this call, in turns (off, on, on, off), all under deterministic
+    algorithms: after the whole train split (dropout 0.2) the parameters
+    and every MemoryState field of the first two must be bit-equal.  Peak
+    memory (above what was allocated before each engine, ``_train_arm``)
+    and edges/s of all four; the remat arm launches
+    attention_fwd_drop twice a step (the forward and the recompute) and
+    attention_bwd_drop once.  Returns its launches and the expected."""
+    arms = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for remat in (False, True, True, False):
+            attention.reset_launch_counts()
+            cfg = _full_width(pkg, cfg_path, remat=remat)
+            eng, stats, tr, peak = _train_arm(torch, pkg, data, cfg)
+            if remat in arms:               # the second epoch: its speed
+                arms[remat][1].update(edges_per_s_again=tr["edges_per_s"],
+                                      peak_mem_gb_again=peak)
+                del eng
+                continue
+            # the state on the host, so that no tensor of this engine
+            # outlives it into the next arm's peak
+            state = ({k: v.cpu() for k, v in eng.model.state_dict().items()},
+                     {f: t.cpu() for f, t in eng.mem_state._asdict().items()})
+            arms[remat] = (state, dict(loss_sum=stats["loss"], **tr,
+                                       peak_mem_gb=peak,
+                                       launches=dict(attention.launch_counts)))
+            del eng
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (off, roff), (on, ron) = arms[False], arms[True]
+    params = [k for k in off[0] if not torch.equal(off[0][k], on[0][k])]
+    memory = [f for f in off[1] if not torch.equal(off[1][f], on[1][f])]
+    steps = ron["steps"]
+    want = dict(attention_fwd=0, attention_bwd=0,
+                attention_fwd_drop=2 * steps, attention_bwd_drop=steps,
+                attention_fwd_infer=0)
+    emit(dict(phase="remat_train", remat_off=roff, remat_on=ron,
+              unequal_params=params, unequal_memory_fields=memory,
+              peak_vs_off=(ron["peak_mem_gb"] + ron["peak_mem_gb_again"])
+              / (roff["peak_mem_gb"] + roff["peak_mem_gb_again"]),
+              edges_per_s_vs_off=(ron["edges_per_s"] + ron["edges_per_s_again"])
+              / (roff["edges_per_s"] + roff["edges_per_s_again"])))
+    if params or memory or roff["loss_sum"] != ron["loss_sum"]:
+        raise AssertionError(f"remat_train: remat differs from no remat "
+                             f"({params}, {memory})")
+    return ron["launches"], want
 
 
 def _stream_state(eng):
@@ -3237,6 +3629,7 @@ def main() -> int:
                   tf32_cudnn=torch.backends.cudnn.allow_tf32,
                   build_s=time.perf_counter() - t0,
                   packer_build_s=hosts["packer"]["seconds"],
+                  hostops_build_s=hosts["hostops"]["seconds"],
                   owned_state_build_s=hosts["owned_state"]["seconds"],
                   cxx=_build.compiler_version(),
                   build={k: dict(seconds=v["seconds"],
@@ -3257,6 +3650,10 @@ def main() -> int:
         phase_jodie_reference(torch, pkg)
         phase = "dyrep_reference"
         phase_dyrep_reference(torch, pkg)
+        phase = "uniform_reference"
+        phase_uniform_reference(torch, pkg)
+        phase = "bf16_reference"
+        phase_bf16_reference(torch, pkg)
         phase = "device_cache_reference"
         phase_device_cache_reference(torch, pkg)
         phase = "train_lean_reference"
@@ -3311,6 +3708,25 @@ def main() -> int:
         # the serial packer state after the epoch, for multihost_train
         serial_memory_packer = snap[0]
         del eng, snap
+        torch.cuda.empty_cache()
+        # the three knobs (each path's counts from 0, in the phases)
+        phase = "uniform_train"
+        knob_counts, knob_want = {}, {}
+        knob_counts["uniform"], knob_want["uniform"] = phase_uniform_train(
+            torch, pkg, attention, data, cfg_path,
+            (host_arms[""][0], host_arms[""][2]))
+        torch.cuda.empty_cache()
+        phase = "bf16_train"
+        counts_, want_ = phase_bf16_train(
+            torch, pkg, attention, data, (("frozen", cfg_path),
+                                          ("memory", mem_cfg_path)))
+        knob_counts.update(counts_)
+        knob_want.update(want_)
+        torch.cuda.empty_cache()
+        phase = "remat_train"
+        knob_counts["remat"], knob_want["remat"] = phase_remat_train(
+            torch, pkg, attention, data, mem_cfg_path)
+        torch.cuda.empty_cache()
         # the two device-side transports beside the host-pack arms above:
         # each path's launches counted from 0
         transport_counts, transport_want = {}, {}
@@ -3440,7 +3856,7 @@ def main() -> int:
                      layer2=layer2_counts, vector=vector_counts,
                      jodie=jodie_counts, dyrep=dyrep_counts, fit=fit_counts,
                      **transport_counts, **mh_counts, sharded=sharded_counts,
-                     sharded_dp2_rank0=dp2_counts)
+                     sharded_dp2_rank0=dp2_counts, **knob_counts)
         counts = {k: sum(p[k] for p in paths.values())
                   for k in attention.KERNELS}
         # two attention layers: each kernel twice a step, twice a chunk
@@ -3459,7 +3875,9 @@ def main() -> int:
                   **{f"{k}_expected": v for k, v in transport_want.items()},
                   **{f"{k}_expected": v for k, v in mh_want.items()},
                   sharded_expected=sharded_serial,
-                  sharded_dp2_rank0_expected=dp2_want, launches=counts))
+                  sharded_dp2_rank0_expected=dp2_want,
+                  **{f"{k}_expected": v for k, v in knob_want.items()},
+                  launches=counts))
         idle = [k for k, v in frozen_counts.items() if v == 0]
         idle += [f"{k} (memory path)" for k in MEMORY_PATH_KERNELS
                  if memory_counts[k] == 0]
@@ -3477,13 +3895,17 @@ def main() -> int:
         idle += [f"{k} (sharded dp = 2 path)" for k in
                  ("attention_fwd", "attention_bwd", "attention_fwd_infer")
                  if not dp2_counts[k]]
+        # the three knobs' paths train at dropout > 0 (remat: no val pass)
+        idle += [f"{k} ({path})" for path in knob_counts
+                 for k in MEMORY_PATH_KERNELS[:2 if path == "remat" else 3]
+                 if not knob_counts[path][k]]
         if idle:
             raise AssertionError(f"kernels never launched on the main path: "
                                  f"{idle}")
         if (layer2_counts != layer2_want or dyrep_counts != dyrep_want
                 or fit_counts != fit_want or transport_counts != transport_want
                 or mh_counts != mh_want or sharded_counts != sharded_serial
-                or dp2_counts != dp2_want
+                or dp2_counts != dp2_want or knob_counts != knob_want
                 or any(vector_counts.values())
                 or any(jodie_counts.values())):
             raise AssertionError(
@@ -3494,6 +3916,7 @@ def main() -> int:
                 f"expected {transport_want}; multi-host paths {mh_counts}, "
                 f"expected {mh_want}; sharded paths {sharded_counts}, "
                 f"{dp2_counts}, expected {sharded_serial}, {dp2_want}; "
+                f"the knobs' paths {knob_counts}, expected {knob_want}; "
                 f"vector path {vector_counts}; "
                 f"JODIE path {jodie_counts}")
         phase = "profile"

@@ -432,18 +432,6 @@ def test_engine_needs_cuda_unless_asked_for_cpu():
         Engine(_data(port_synthetic), parse_config_dict(RAW))
 
 
-@pytest.mark.parametrize("section,knobs,name", [
-    ("sampling", dict(strategy="uniform"), "sampling.strategy"),
-    ("train", dict(compute_dtype="bfloat16"), "compute_dtype"),
-    ("train", dict(remat=True, **MEMORY), "train.remat")],
-    # "memory": the mailbox memory runs, its remat knob does not
-    ids=["uniform", "bf16", "memory"])
-def test_engine_refuses_unported_config(section, knobs, name):
-    raw = dict(RAW, **{section: [dict(RAW[section][0], **knobs)]})
-    with pytest.raises(NotImplementedError, match=name):
-        Engine(_data(port_synthetic), parse_config_dict(raw), device="cpu")
-
-
 def test_memory_yml_parses_like_jax_and_builds():
     """The port's configs/TGN-memory.yml holds the JAX package's values;
     Engine builds the GRU memory from it (GRU input 2D + F + D_t) and,

@@ -57,7 +57,12 @@ def test_import_builds_nothing():
             "tgb_tgn_dgl_tpu_torch.parallel.mh_engine, "
             "tgb_tgn_dgl_tpu_torch.parallel.engine, "
             "tgb_tgn_dgl_tpu_torch.parallel.mesh, "
-            "tgb_tgn_dgl_tpu_torch.parallel.sharded; "
+            "tgb_tgn_dgl_tpu_torch.parallel.sharded, "
+            "tgb_tgn_dgl_tpu_torch.data.tcsr, "
+            "tgb_tgn_dgl_tpu_torch.data.hostops, "
+            "tgb_tgn_dgl_tpu_torch.data.dependency, "
+            "tgb_tgn_dgl_tpu_torch.ops.segment, "
+            "tgb_tgn_dgl_tpu_torch.utils.visualize; "
             "from tgb_tgn_dgl_tpu_torch.ops import _build; "
             "print(len(_build._loaded))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -70,12 +75,13 @@ def test_import_builds_nothing():
 
 
 def test_host_build_compiles_only_the_ports_sources(monkeypatch, tmp_path):
-    """The host libraries (the packer, the owned exchange's owners) build
-    each from its own tgb_tgn_dgl_tpu_torch/csrc/<name>.cpp alone into the
-    port's _build/, never from or into the JAX package's csrc/; each
-    compile command names no other source."""
+    """The host libraries (the t-CSR samplers and the leveler, the
+    packer, the owned exchange's owners) build each from its own
+    tgb_tgn_dgl_tpu_torch/csrc/<name>.cpp alone into the port's _build/,
+    never from or into the JAX package's csrc/; each compile command names
+    no other source."""
     from tgb_tgn_dgl_tpu_torch.ops import _build
-    names = ["owned_state", "packer"]
+    names = ["hostops", "owned_state", "packer"]
     assert _build.host_sources() == names
     for name in names:
         assert _build.host_target(name).parent == PKG / "_build"

@@ -268,8 +268,9 @@ def load_tgl_data(name: str, root: str = "DATA") -> "TemporalData":
     """Load a TGL-format dataset directory — the reference's legacy
     ``getData`` path (reference utils.py:71-97): ``<root>/<name>/`` with
     ``edges.npz`` (our npz) or ``edges.csv`` (src,dst,time[,...]).  The
-    t-CSR ``ext_full.npz`` of that layout feeds the 'uniform' sampler,
-    which the port has not ported, so it is not read here."""
+    t-CSR ``ext_full.npz`` of that layout is not read here: the Engine
+    builds the t-CSR of the stream itself under 'uniform' (data/tcsr.py,
+    whose ``TCSR.load_npz`` reads such a file)."""
     d = os.path.join(root, name)
     npz = os.path.join(d, "edges.npz")
     if os.path.exists(npz):

@@ -2,10 +2,16 @@
 tgb_tgn_dgl_tpu/data/packer.py, numpy path only, plus the hand-over of a
 Pack to torch tensors on the device: ``to_device``).
 
-The Engine packs with the C++ twin of this packer
-(data/native_packer.py) and ships wires (ops/wire.py); ``StreamPacker``
-and ``to_device`` stay as the plain version that the tests and
-chip_smoke.py hold the native packer and the device expansion against.
+Under the 'recent' strategy the Engine packs with the C++ twin of this
+packer (data/native_packer.py) and ships wires (ops/wire.py);
+``StreamPacker`` and ``to_device`` stay as the plain version that the
+tests and chip_smoke.py hold the native packer and the device expansion
+against.  Under 'uniform' the Engine packs with ``StreamPacker`` itself,
+as the JAX package does (its factory takes the native packer for 'recent'
+only): ``set_tcsr`` attaches the full-history t-CSR (data/tcsr.py), each
+block of a batch samples its roots' K in-edges from it with a seed drawn
+from the packer's ``_rng``, and ``pack_wire`` compacts the pack into a
+``WirePack`` (``ops/wire.py::pack_to_wire``).
 
 The crucial structural observation behind this framework: in the reference,
 the recency neighbor cache (neighbor_loader.py) and the per-node clock
@@ -44,6 +50,8 @@ from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from . import tcsr as tcsr_mod
 
 KIND_INVALID = 0
 KIND_CACHE = 1
@@ -202,6 +210,14 @@ class StreamPacker:
         self.cur_e_id = 0
         # mailbox ring pointers (host mirror of MemoryState slot layout)
         self.mail_ptr = np.zeros(num_nodes, dtype=np.int64)
+        # the 'uniform' strategy's draws: one sub-seed a block of every
+        # pack.  Stream state that ``snapshot`` leaves out, as the JAX
+        # packer's does (a val snapshot does not rewind the draws); the
+        # Engine's checkpoint holds it
+        self._rng = np.random.default_rng(cfg.seed)
+        # full-history t-CSR for the 'uniform' strategy (set_tcsr);
+        # 'recent' uses the streaming cache above
+        self._tcsr = None
         # sticky shape buckets: monotone per (M, eval_mode) profile so a
         # whole run converges to one grid shape per profile
         self._sticky: dict = {}
@@ -210,6 +226,19 @@ class StreamPacker:
         cur = self._sticky.setdefault(key, {})
         cur[name] = max(cur.get(name, 0), value)
         return cur[name]
+
+    def bucket_state(self) -> dict:
+        """A copy of the sticky shape buckets, {(M, eval_mode): {name:
+        size}} (as ``NativeStreamPacker.bucket_state``)."""
+        return {k: dict(v) for k, v in self._sticky.items()}
+
+    def load_bucket_state(self, buckets) -> None:
+        self._sticky = {tuple(k): dict(v) for k, v in buckets.items()}
+
+    def set_tcsr(self, tcsr) -> None:
+        """Attach a data/tcsr.py TCSR for strategy='uniform' sampling
+        (the TGL full-history sampler role, reference config/TGN.yml:5-9)."""
+        self._tcsr = tcsr
 
     # ---------------------------------------------------------------- state
     def reset_cache(self) -> None:
@@ -422,11 +451,20 @@ class StreamPacker:
             roots_i = root_nid_parts[i]
             n_i = len(roots_i)
             rows = slice(off, off + n_i)
-            # 'recent': streaming recency-cache in-edges (snapshot is
-            # pre-batch: inserts happen after)
-            c_nbr = self.cache_nbr[roots_i]             # (n_i, K)
-            c_eid = self.cache_eid[roots_i]
-            c_t = self.cache_t[roots_i]
+            if cfg.strategy == "uniform" and self._tcsr is not None:
+                # TGL 'uniform' strategy: K uniform neighbors from each
+                # root's full history before its current clock
+                sub_seed = int(self._rng.integers(0, 2 ** 62))
+                c_nbr, c_eid, c_t = tcsr_mod.sample(
+                    self._tcsr, roots_i, self.clock[roots_i], K,
+                    strategy="uniform", seed=sub_seed)
+                c_eid = c_eid.astype(np.int64)
+            else:
+                # 'recent': streaming recency-cache in-edges (snapshot is
+                # pre-batch: inserts happen after)
+                c_nbr = self.cache_nbr[roots_i]             # (n_i, K)
+                c_eid = self.cache_eid[roots_i]
+                c_t = self.cache_t[roots_i]
             valid = c_eid >= 0
             nbr_nid[rows, :K] = c_nbr
             nbr_kind[rows, :K] = np.where(valid, KIND_CACHE, KIND_INVALID)
@@ -567,6 +605,38 @@ class StreamPacker:
         if insert:
             self.insert(src, dst, t, e_id=np.asarray(ev_idx, np.int64))
         return pack
+
+    def pack_wire(self, src, dst, t, ev_idx, blocks, neg,
+                  eval_mode: bool = False, insert: bool = True,
+                  write_mail: bool = True):
+        """(WirePack, intra_width): the full pack, then ``pack_to_wire``
+        (the native packer emits the wire directly).  The intra COO's
+        length ``Ei`` is a sticky bucket too: a shorter list is padded
+        with row R (the trash row), -1 rslots and zeros."""
+        from ..ops.wire import pack_to_wire
+
+        pack = self.pack(src, dst, t, ev_idx, blocks, neg,
+                         eval_mode=eval_mode, insert=insert,
+                         write_mail=write_mail)
+        K = self.cfg.num_neighbors
+        wire = pack_to_wire(pack, K)
+        neg_arr = np.asarray(neg)
+        M = neg_arr.shape[1] if neg_arr.ndim == 2 else 1
+        n = wire.ia_row.shape[0]
+        Ei = self._sticky_bucket((M, bool(eval_mode)), "Ei", n)
+        if Ei != n:
+            R = pack.root_nid.shape[0]
+
+            def pad(a, fill):
+                return np.concatenate([a, np.full(Ei - n, fill, a.dtype)])
+
+            wire = wire._replace(
+                ia_row=pad(wire.ia_row, R), ia_col=pad(wire.ia_col, 0),
+                ia_loc=pad(wire.ia_loc, 0), ia_feat=pad(wire.ia_feat, 0),
+                ia_dt=pad(wire.ia_dt, 0.0),
+                ia_rslot=(None if wire.ia_rslot is None
+                          else pad(wire.ia_rslot, -1)))
+        return wire, pack.nbr_kind.shape[1] - K - 1
 
 
 def to_device(pack: Pack, device) -> DevicePack:

@@ -100,8 +100,25 @@ once, as the JAX ``fit`` (:2023-2025); ``save_checkpoint`` /
 (:2109-2187, engine/checkpoint.py), and the cursors ``_epoch`` and
 ``_step`` count the epochs and batches trained.
 
-Not ported yet (NotImplementedError): ``train.remat``, 'uniform'
-sampling, bfloat16 compute.
+Three config knobs change the path, as in the JAX Engine:
+
+  * ``sampling.strategy: uniform``: the numpy ``StreamPacker``
+    (data/packer.py) with the t-CSR of the whole stream (data/tcsr.py,
+    built by csrc/hostops.cpp) packs every batch and chunk on this thread
+    into the compact wire (``pack_wire`` + ``compact_wire``); each block
+    of a pack samples its roots' K in-edges uniformly from their history
+    before their clock, with a seed drawn from the packer's ``_rng``.  The
+    slot-unique gate closes ("wire_dedup off or strategy!=recent": column
+    chunks), and device-cache mode and the train-lean wire stay off;
+  * ``train.compute_dtype: bfloat16``: the embedding's dense pass in
+    bfloat16 (models/tgnn.py) around the same fp32 attention kernels, and
+    the slot-unique eval's embedding table in bfloat16; parameters, Adam,
+    the memory and the checkpoint stay fp32;
+  * ``train.remat``: the memory and DyRep train steps recompute the
+    embedding in the backward (``torch.utils.checkpoint``), its dropout
+    masks replayed from the engine generator's state at the step, so the
+    step is the one without remat bit for bit, at one more forward launch
+    a step.
 """
 from __future__ import annotations
 
@@ -112,12 +129,14 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..data.dataset import TemporalData
 from ..data.dependency import dependency_aware_batch
 from ..data.lean_packer import NativeLeanPacker
 from ..data.native_packer import NativeStreamPacker
-from ..data.packer import PackerConfig
+from ..data.packer import PackerConfig, StreamPacker
+from ..data.tcsr import build_tcsr
 from ..models.factory import arch_embed, arch_predict, init_arch
 from ..models.memory import (MemoryModelConfig, apply_mail, commit,
                              init_memory, init_memory_state)
@@ -151,6 +170,12 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+# train.compute_dtype -> the embedding's dense dtype
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the slot-unique gate's reason under 'uniform' (tgb_tgn_dgl_tpu
+# engine/train.py:698)
+UNIFORM_GATE = "wire_dedup off or strategy!=recent"
+
 # slot-unique eval: root slots a batch embeds per embedding chunk, and the
 # negative columns a batch scores per chunk (tgb_tgn_dgl_tpu
 # engine/train.py:904,920)
@@ -168,17 +193,6 @@ def eval_neg_chunk_size(config, M: int, n_events: int) -> int:
             or max(1, min(M, 49152 // max(n_events, 1) - 2)))
 
 
-def _unsupported(config: FrameworkConfig) -> Optional[str]:
-    tr = config.train
-    if tr.remat:
-        return "train.remat=True"
-    if config.sampling.strategy != "recent":
-        return f"sampling.strategy={config.sampling.strategy!r}"
-    if tr.compute_dtype != "float32":
-        return f"train.compute_dtype={tr.compute_dtype!r}"
-    return None
-
-
 class Engine:
     """Single-device engine for TGN (the frozen all-ones memory or the
     mailbox memory), JODIE and DyRep; ``mem_state`` holds the memory's
@@ -193,10 +207,8 @@ class Engine:
         self.device = resolve_device(device)
         self.data = data
         self.config = config.validate()
-        missing = _unsupported(config)
-        if missing:
-            raise NotImplementedError(f"{missing} is not ported yet")
         tr, g = config.train, config.gnn
+        self.uniform = config.sampling.strategy == "uniform"
         drop = g.override_dropout
         # JODIE and DyRep are memory models by definition (tgb_tgn_dgl_tpu
         # engine/train.py:216-230); TGN takes the mailbox memory unless
@@ -219,6 +231,7 @@ class Engine:
             message_mode=g.message_mode,
             feat_drop=tr.dropout if drop is None else drop,
             attn_drop=tr.att_dropout if drop is None else drop,
+            compute_dtype=COMPUTE_DTYPES[tr.compute_dtype],
             # reference-parity frozen path: memory ≡ ones forever
             # (model_utils.py:270-271), so the embedding reads no table
             const_ones_memory=not self.use_memory,
@@ -264,27 +277,39 @@ class Engine:
             layers=g.layer,
         )
         # device-cache mode: the gate of tgb_tgn_dgl_tpu
-        # engine/train.py:181-185 (the strategy is always 'recent' here)
+        # engine/train.py:181-185
         self.device_cache = False
         if tr.device_cache:
             off = ("gnn.arch!=transformer_attention"
                    if g.arch != "transformer_attention" else
-                   "gnn.layer>1" if g.layer != 1 else None)
+                   "gnn.layer>1" if g.layer != 1 else
+                   "sampling.strategy!=recent" if self.uniform else None)
             self.device_cache = off is None
             if off:
                 print(f"[train] device-cache mode off ({off}); using the "
                       f"host packer", flush=True)
         # the train-lean wire rides on the dedup wire: one layer, host
-        # packer
+        # packer, 'recent'
         self.train_lean = (tr.wire_train_lean and not self.device_cache
-                           and g.layer == 1)
+                           and g.layer == 1 and not self.uniform)
+        # every batch and chunk packed on this thread when it is reached:
+        # the worker's dedup wire carries no rslot (gnn.layer > 1) and no
+        # t-CSR draw ('uniform'), and the lean packer has no worker
+        self._sync_pack = g.layer > 1 or self.device_cache or self.uniform
         self.sstate = None
         # the packer's library builds here at first use and a failed build
-        # raises (data/native_packer.py)
+        # raises (data/native_packer.py, data/hostops.py)
         if self.device_cache:
             self.packer = NativeLeanPacker(data.num_nodes, pk_cfg)
             self.sstate = init_stream_device_state(
                 data.num_nodes, config.sampling.num_neighbors, self.device)
+        elif self.uniform:
+            # the JAX factory's numpy packer for any strategy but 'recent'
+            # (tgb_tgn_dgl_tpu data/native_packer.py:733), with the t-CSR
+            # of the whole stream (engine/train.py:195-198)
+            self.packer = StreamPacker(data.num_nodes, pk_cfg)
+            self.packer.set_tcsr(build_tcsr(data.src, data.dst, data.t,
+                                            data.num_nodes))
         else:
             self.packer = NativeStreamPacker(data.num_nodes, pk_cfg)
         # counterpart of optax.adam(lr) (b1 0.9, b2 0.999, eps 1e-8)
@@ -323,7 +348,8 @@ class Engine:
             rows = self._rows[split]
             self._blocks[split] = dependency_aware_batch(
                 self.data.src[rows], self.data.dst[rows],
-                self.config.train.batch_size)
+                self.config.train.batch_size,
+                num_threads=self.config.sampling.num_thread)
         return self._blocks[split]
 
     def _iter_batches(self, split: str):
@@ -367,10 +393,11 @@ class Engine:
 
         At gnn.layer > 1 the worker cannot take the job (its dedup wire
         carries no rslot; JAX ``sync_pack``, engine/train.py:1546-1597),
-        and in device-cache mode the lean packer has no worker (JAX packs
-        lean wires on its main thread, :1494-1498, :1660-1663): each job
-        is packed on this thread when it is reached, and
-        ``tm["fetch_s"]`` takes that whole pack.
+        under 'uniform' the numpy packer has no worker (the JAX Engine
+        packs it on its main thread, :1506-1511), and in device-cache mode
+        the lean packer has none (JAX packs lean wires on its main thread,
+        :1494-1498, :1660-1663): each job is packed on this thread when
+        it is reached, and ``tm["fetch_s"]`` takes that whole pack.
 
         With ``nb_bucket`` (train jobs with the train-lean wire) each dedup
         wire goes train-lean: the packer's clocks are read after the
@@ -378,7 +405,7 @@ class Engine:
         job's submit hands it to the worker (JAX :1544-1563).  A job
         handed back (P > 255) is packed on this thread as a compact wire,
         with its Δt."""
-        if self.config.gnn.layer > 1 or self.device_cache:
+        if self._sync_pack:
             for job in jobs:
                 t0 = time.perf_counter()
                 out = self._pack_wire(job[1], job[2])
@@ -508,9 +535,11 @@ class Engine:
 
     def _embed(self, pack, mem_rows, lu_rows, train: bool):
         """Root-slot embeddings of a device pack by the model's arch: from
-        the batch's applied memory rows with the memory, else the frozen
-        ones."""
+        the batch's applied memory rows with the memory (recomputed in the
+        backward at train with ``train.remat``), else the frozen ones."""
         if self.use_memory:
+            if train and self.config.train.remat:
+                return self._remat_embed(pack, mem_rows, lu_rows)
             return arch_embed(self.model, self.arch, self.model_cfg,
                               mem_rows, lu_rows, self.feats, pack,
                               train=train, generator=self.generator,
@@ -518,6 +547,33 @@ class Engine:
         return arch_embed(self.model, self.arch, self.model_cfg, self.memory,
                           None, self.feats, pack, train=train,
                           generator=self.generator, local=False)
+
+    def _remat_embed(self, pack, mem_rows, lu_rows):
+        """The memory-mode train embedding under ``torch.utils.checkpoint``
+        (the JAX ``jax.checkpoint`` of the embed closure,
+        engine/train.py:383-396): its activations are recomputed in the
+        backward instead of kept.  The dropout masks come from a generator
+        of their own set to ``self.generator``'s state at the step, in the
+        forward and again in the recompute (checkpoint's
+        ``preserve_rng_state`` restores the default generators only, and
+        the recompute would otherwise draw new masks); ``self.generator``
+        then goes on from where the forward's draws left it, as without
+        remat."""
+        state = self.generator.get_state()
+        gens = []
+
+        def run(mem_rows, lu_rows):
+            gen = torch.Generator(device=self.device)
+            gen.set_state(state)
+            gens.append(gen)
+            return arch_embed(self.model, self.arch, self.model_cfg,
+                              mem_rows, lu_rows, self.feats, pack,
+                              train=True, generator=gen, local=True)
+
+        embed = checkpoint(run, mem_rows, lu_rows, use_reentrant=False,
+                           preserve_rng_state=False)
+        self.generator.set_state(gens[0].get_state())
+        return embed
 
     def _train_step(self, pack, acc: torch.Tensor):
         """One Adam step on a device pack (tgb_tgn_dgl_tpu
@@ -651,6 +707,9 @@ class Engine:
         cap = self.config.train.max_intra_block
         t = self.data.t
         for ok, reason in (
+                # the eval-lean dedup wire holds the cache's in-edges, not
+                # the t-CSR's draws
+                (not self.uniform, UNIFORM_GATE),
                 # the lean wire is packed a chunk at a time against the
                 # device's cache (tgb_tgn_dgl_tpu engine/train.py:699)
                 (not self.device_cache, "device_cache mode"),
@@ -755,11 +814,15 @@ class Engine:
         the mail is applied once on the batch's read set before the first
         embedding, and committed with the batch's write plan after
         scoring (DyRep's mail from the whole table, through the full (R2,)
-        slot map: the first chunk's expansion holds only its own slots)."""
+        slot map: the first chunk's expansion holds only its own slots).
+        The table is in the compute dtype (tgb_tgn_dgl_tpu
+        engine/train.py:813): each chunk's fp32 embedding is rounded into
+        it."""
         R2 = wire.root_loc.shape[0]
         Rc = R2 // n_chunks
         emb = torch.empty((R2, self.model_cfg.hidden_dim),
-                          dtype=torch.float32, device=self.device)
+                          dtype=self.model_cfg.compute_dtype,
+                          device=self.device)
         mem_rows = lu_rows = None
         for c in range(n_chunks):
             rows = slice(c * Rc, (c + 1) * Rc)
@@ -781,16 +844,19 @@ class Engine:
 
     def _unique_counts(self, emb, wire, mask, n_mc: int):
         """The (B,) rank counts of a slot-unique batch from its embedding
-        table, by gathers, ``n_mc`` column chunks of its negative slots."""
-        h_src = emb[wire.ev_src_slot.long()]
-        h_pos = emb[wire.ev_pos_slot.long()]
+        table, by gathers, ``n_mc`` column chunks of its negative slots.
+        The gathered rows go to the fp32 predictor in fp32 (a bfloat16
+        table's rows promote exactly, as in JAX)."""
+        h_src = emb[wire.ev_src_slot.long()].float()
+        h_pos = emb[wire.ev_pos_slot.long()].float()
         neg_slot = wire.ev_neg_slot.long()                    # (B, Mp)
         Mc = neg_slot.shape[1] // n_mc
         opt = pes = torch.zeros(neg_slot.shape[0], dtype=torch.int64,
                                 device=self.device)
         for j in range(n_mc):
             cols = slice(j * Mc, (j + 1) * Mc)
-            pos, neg = self.model.pred(h_src, h_pos, emb[neg_slot[:, cols]])
+            pos, neg = self.model.pred(h_src, h_pos,
+                                       emb[neg_slot[:, cols]].float())
             p, m = pos[:, None], mask[:, cols]
             opt = opt + ((neg > p) & m).sum(dim=1)
             pes = pes + ((neg >= p) & m).sum(dim=1)
@@ -941,11 +1007,19 @@ class Engine:
         table loaded from a checkpoint, which warming made, stays as it
         is."""
         d = self.data
-        probe = (NativeLeanPacker if self.device_cache
-                 else NativeStreamPacker)(d.num_nodes, self.packer.cfg)
+        if self.uniform:
+            # the engine's t-CSR (read only) and a same-seed rng of the
+            # probe's own: it replays the first epoch's draws and leaves
+            # the engine's untouched (tgb_tgn_dgl_tpu engine/train.py:
+            # 1385-1392)
+            probe = StreamPacker(d.num_nodes, self.packer.cfg)
+            probe.set_tcsr(self.packer._tcsr)
+        else:
+            probe = (NativeLeanPacker if self.device_cache
+                     else NativeStreamPacker)(d.num_nodes, self.packer.cfg)
         # the JAX Engine's _wire_dedup: the dedup wire where the port ships
         # it, else the wire its engine packs
-        dedup = not self.device_cache and self.config.gnn.layer == 1
+        dedup = not self._sync_pack
 
         def pack(args, kw):
             if dedup and probe.pack_wire_dedup(*args, **kw) is not None:
@@ -1070,7 +1144,8 @@ class Engine:
         (tgb_tgn_dgl_tpu engine/train.py:2084-2104).  Taken around a val
         pass it keeps the streaming eval's changes out of training (the
         reference's unwired backup_memory/restore_memory,
-        model_utils.py:290-308)."""
+        model_utils.py:290-308).  Under 'uniform' the packer's ``_rng``
+        is not in it, as in JAX: the val pass's draws are not rewound."""
         snap = {"packer": self.packer.snapshot()}
         if self.device_cache:
             snap["sstate"] = clone_stream_state(self.sstate)
@@ -1101,8 +1176,9 @@ class Engine:
         engine/train.py:2117-2145): the parameters, Adam's state, the
         dropout generator's state and its device type, the negative
         sampler's PCG64 state (hi/lo words as int64), the cursors, the
-        packer's state with its sticky shape buckets (which the JAX
-        checkpoint leaves out) and the memory's.  In device-cache mode the
+        packer's state with its sticky shape buckets and, under 'uniform',
+        its ``_rng`` state (both of which the JAX checkpoint leaves out)
+        and the memory's.  In device-cache mode the
         packer's state is its ring pointers, and the device's ``sstate``
         is kept beside it (:2130-2133), the lean packer's buckets too."""
         opt = self.optimizer.state_dict()
@@ -1140,6 +1216,10 @@ class Engine:
                 cache_t=torch.from_numpy(t),
                 clock=torch.from_numpy(clock), cur_e_id=int(cur),
                 mail_ptr=torch.from_numpy(ptr))
+        if self.uniform:
+            # the draws a resumed run makes next
+            st["packer"]["rng"] = torch.from_numpy(
+                rng_state_to_array(self.packer._rng).view(np.int64))
         if self.use_memory:
             st["mem_state"] = dict(zip(self.mem_state._fields,
                                        self.mem_state))
@@ -1193,6 +1273,9 @@ class Engine:
                 "cache_nbr", "cache_eid", "cache_t", "clock", "mail_ptr"))
             self.packer.restore((nbr, eid, t, clock, int(pk["cur_e_id"]),
                                  ptr))
+        if self.uniform:
+            self.packer._rng = rng_state_from_array(
+                pk["rng"].cpu().numpy().view(np.uint64))
         self.packer.load_bucket_state(pk["buckets"])
         if self.use_memory:
             self.mem_state = type(self.mem_state)(**st["mem_state"])

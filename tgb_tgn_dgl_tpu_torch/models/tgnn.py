@@ -38,6 +38,16 @@ parameters are ``gat{l}``, shaped as ``gat``.  Intermediate layers
 aggregate heads by mean, as the last one does (the JAX package's
 documented deviation on dead code).
 
+``compute_dtype`` (``train.compute_dtype``) is the dtype of the dense
+pass, as in the JAX embed: the edge features, the time encoding and the
+node features are cast to it (the memory table before its gather, so its
+gradient sums in that dtype too), the scalar mode's projections run in
+it, and the head mean takes the attention output cast to it.  The
+attention itself runs in fp32 on both devices (``attention_core`` casts
+el′ and er, as the JAX Pallas route does before its kernels), vector
+layers promote to fp32 at their fp32 parameters (as JAX's type promotion
+does), and the embedding comes back in fp32.  Parameters stay fp32.
+
 Node features come from one of three places: literal ones (the frozen
 memory), a full (N, D) table gathered by node id, or (``local=True``) the
 batch's (U, D) memory rows from ``models/memory.apply_mail``, gathered
@@ -71,6 +81,8 @@ class TGNNConfig(NamedTuple):
     feat_drop: float = 0.2         # train.dropout
     attn_drop: float = 0.2         # train.att_dropout
     negative_slope: float = 0.2    # leaky_relu (model_utils.py:517)
+    # the dense pass's dtype (train.compute_dtype): float32 or bfloat16
+    compute_dtype: torch.dtype = torch.float32
     # frozen all-ones memory (model_utils.py:270-271): node features are
     # literal ones, no table gather
     const_ones_memory: bool = False
@@ -195,9 +207,10 @@ def _scalar_layer(gat: GATLayer, cfg: TGNNConfig, src_d, dst_d, ef_d, te_d,
     (D_in → H) projections, then ``attention_core`` (the kernels on CUDA),
     the identity residual and the head mean."""
     F = ef_d.shape[-1]
-    wl, bl = _fused_attn_proj(gat.fc_node, gat.attn_l)
-    wr, br = _fused_attn_proj(gat.fc_node, gat.attn_r)
-    we, be = _fused_attn_proj(gat.fc_edge, gat.attn_e)
+    cdt = cfg.compute_dtype
+    wl, bl = (w.to(cdt) for w in _fused_attn_proj(gat.fc_node, gat.attn_l))
+    wr, br = (w.to(cdt) for w in _fused_attn_proj(gat.fc_node, gat.attn_r))
+    we, be = (w.to(cdt) for w in _fused_attn_proj(gat.fc_edge, gat.attn_e))
     el = src_d @ wl + bl                       # (R, Kp, H)
     er = dst_d @ wr + br                       # (R, H)
     ee = ef_d @ we[:F] + te_d @ we[F:] + be
@@ -207,9 +220,9 @@ def _scalar_layer(gat: GATLayer, cfg: TGNNConfig, src_d, dst_d, ef_d, te_d,
         dm = dropout_mask(el_prime.shape, cfg.attn_drop, generator,
                           el_prime.device)
     out = attention_core(el_prime, er, mask, cfg.negative_slope,
-                         drop_mask=dm)         # (R, H)
+                         drop_mask=dm)         # (R, H), fp32
     # identity residual + head mean: mean_h(out_h + dst_in_d)
-    return dst_d + torch.mean(out, dim=-1, keepdim=True)
+    return dst_d + torch.mean(out.to(cdt), dim=-1, keepdim=True)
 
 
 def _vector_layer(gat: GATLayer, cfg: TGNNConfig, src_d, dst_d, ef_d, te_d,
@@ -218,8 +231,11 @@ def _vector_layer(gat: GATLayer, cfg: TGNNConfig, src_d, dst_d, ef_d, te_d,
     models/tgnn.py:240-257), plain torch: per-head (R, Kp, H, D)
     projections, logits el + ee + er, masked softmax, attention dropout,
     messages ``a ⊙ (node_p + edge_p)`` summed over the columns, and the
-    head mean of ``out + dst_in``."""
+    head mean of ``out + dst_in``, in fp32 whatever the compute dtype
+    (JAX promotes its inputs at the fp32 parameters)."""
     H, D = cfg.num_heads, cfg.hidden_dim
+    src_d, dst_d, ef_d, te_d = (x.to(torch.float32)
+                                for x in (src_d, dst_d, ef_d, te_d))
     F = ef_d.shape[-1]
     node_p = gat.fc_node(src_d).unflatten(-1, (H, D))     # (R, Kp, H, D)
     root_p = gat.fc_node(dst_d).unflatten(-1, (H, D))     # (R, H, D)
@@ -253,6 +269,7 @@ def tgnn_embed(model: TGNN, cfg: TGNNConfig, memory: Optional[torch.Tensor],
     must carry ``nbr_rslot``."""
     check_supported(cfg)
     D = cfg.hidden_dim
+    cdt = cfg.compute_dtype
     det = not train
     rslot = pack.nbr_rslot
     if cfg.num_layers > 1 and rslot is None:
@@ -264,17 +281,21 @@ def tgnn_embed(model: TGNN, cfg: TGNNConfig, memory: Optional[torch.Tensor],
     R, Kp = kind.shape
 
     # ---- edge features: msg-table gather; self-loops are ones ----------
+    # (the JAX embed casts the table before its gather; the table takes no
+    # gradient, so casting the gathered rows gives the same values)
     feat_idx = pack.nbr_feat.long().clamp(0, feats_table.shape[0] - 1)
-    ef = feats_table[feat_idx]                 # (R, Kp, F)
+    ef = feats_table[feat_idx].to(cdt)         # (R, Kp, F)
     ef = torch.where((kind == KIND_SELF)[..., None], 1.0, ef)
     ef = torch.where(mask[..., None], ef, 0.0)
 
     # ---- Δt time encoding (TemporalEdgePreprocess) ----------------------
-    te = model.time(pack.nbr_dt)               # (R, Kp, D)
+    te = model.time(pack.nbr_dt).to(cdt)       # (R, Kp, D)
     # The edge input is conceptually concat(ef, te) (R, Kp, F+D); every
     # consumer splits its projection into W[:F] @ ef + W[F:] @ te instead.
 
-    # ---- node features --------------------------------------------------
+    # ---- node features (the table cast before its gather) -------------
+    if memory is not None:
+        memory = memory.to(cdt)
     if local:
         # embedding() is memory[idx]; its backward reduces the duplicate
         # indices in sorted segments, where indexing's backward adds them
@@ -283,8 +304,8 @@ def tgnn_embed(model: TGNN, cfg: TGNNConfig, memory: Optional[torch.Tensor],
         nf_src = embedding(pack.nbr_loc.long(), memory)   # (R, Kp, D)
         nf_dst = embedding(pack.root_loc.long(), memory)  # (R, D)
     elif cfg.const_ones_memory:
-        nf_src = torch.ones((R, Kp, D), device=ef.device)
-        nf_dst = torch.ones((R, D), device=ef.device)
+        nf_src = torch.ones((R, Kp, D), dtype=cdt, device=ef.device)
+        nf_dst = torch.ones((R, D), dtype=cdt, device=ef.device)
     else:
         nf_src = memory[pack.nbr_nid.long()]   # (R, Kp, D)
         nf_dst = memory[pack.root_nid.long()]  # (R, D)
@@ -311,7 +332,7 @@ def tgnn_embed(model: TGNN, cfg: TGNNConfig, memory: Optional[torch.Tensor],
         te_d = dropout(te, cfg.feat_drop, generator, det)
         embed = gat_pass(model.layer(l), cfg, src_d, dst_d, ef_d, te_d, mask,
                          generator, det)
-    return embed
+    return embed.to(torch.float32)
 
 
 def tgnn_forward(model: TGNN, cfg: TGNNConfig,

@@ -263,13 +263,18 @@ def infer_route(el_prime: torch.Tensor, er: torch.Tensor,
 def attention_core(el_prime: torch.Tensor, er: torch.Tensor,
                    mask: torch.Tensor, negative_slope: float,
                    drop_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Masked row attention (R, Kp, H) -> (R, H): the plain version for a
-    CPU tensor, the CUDA kernels for a CUDA tensor."""
+    """Masked row attention (R, Kp, H) -> (R, H) in fp32: the plain version
+    for a CPU tensor, the CUDA kernels for a CUDA tensor.  el′ and er are
+    cast to fp32 first on both devices (a bfloat16 caller's gradients come
+    back in bfloat16 through the cast), as the JAX Pallas route does
+    (tgb_tgn_dgl_tpu/ops/pallas_attention.py:362-366)."""
+    el_prime = el_prime.to(torch.float32)
+    er = er.to(torch.float32)
     if el_prime.device.type == "cpu":
         return attention_core_reference(el_prime, er, mask, negative_slope,
                                         drop_mask)
-    el_prime = el_prime.to(torch.float32).contiguous()
-    er = er.to(torch.float32).contiguous()
+    el_prime = el_prime.contiguous()
+    er = er.contiguous()
     mask = mask.contiguous()
     if infer_route(el_prime, er, drop_mask):
         return attention_fwd_infer(el_prime, er, mask, float(negative_slope))

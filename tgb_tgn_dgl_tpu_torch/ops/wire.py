@@ -23,7 +23,9 @@ unchanged.  Three formats, as in the JAX package:
     too (``train_lean_dedup``): it carries the pre-batch clock rows of its
     unique table, and the device replays the batch's clock writes.
 
-Host side (numpy): ``stack_wires``, ``compact_wire``, ``nb_bucket_of``,
+Host side (numpy): ``stack_wires``, ``pack_to_wire`` (a full Pack to a
+WirePack: the 'uniform' strategy's numpy pack), ``compact_wire``,
+``nb_bucket_of``,
 ``_lean_block_meta``, ``eval_lean_dedup``, ``train_lean_dedup``.  Device
 side (torch): ``wire_to_device`` (one staging buffer, one pinned
 non-blocking copy for a wire and the arrays that travel with it; uint16
@@ -46,7 +48,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..data.packer import KIND_CACHE, KIND_INTRA, KIND_SELF, DevicePack
+from ..data.packer import (KIND_CACHE, KIND_INTRA, KIND_SELF, DevicePack,
+                           Pack, _bucket_pow2)
 
 Array = "np.ndarray | torch.Tensor"
 # a CompactWire's rslot fields ship as u16 while every slot (R - 1) is at
@@ -182,6 +185,54 @@ def wire_nbytes(wire) -> int:
 
 
 # ------------------------------------------------------------------ host
+def pack_to_wire(pack: Pack, num_neighbors: int) -> WirePack:
+    """A full numpy Pack compacted into a WirePack (tgb_tgn_dgl_tpu
+    ops/wire.py:160): the cache part as (R, K) loc/feat/dt, the self
+    column's Δt, the intra part as a COO list whose length is bucketed
+    from 2B up (an event feeds every later root slot of its endpoints, so
+    it can pass 2B), and at gnn.layer > 1 the rslot of each in-edge."""
+    K = num_neighbors
+    R = pack.nbr_kind.shape[0]
+    B = pack.ev_src.shape[0]
+    cache_kind = pack.nbr_kind[:, :K]
+    cache_feat = np.where(cache_kind == KIND_CACHE,
+                          pack.nbr_feat[:, :K], -1).astype(np.int32)
+    rows, cols = np.nonzero(pack.nbr_kind[:, K + 1:] == KIND_INTRA)
+    n = len(rows)
+    Ei = _bucket_pow2(max(n, 1), lo=2 * B)
+    ia_row = np.full(Ei, R, np.int32)
+    ia_col = np.zeros(Ei, np.int32)
+    ia_loc = np.zeros(Ei, np.int32)
+    ia_feat = np.zeros(Ei, np.int32)
+    ia_dt = np.zeros(Ei, np.float32)
+    ia_row[:n] = rows
+    ia_col[:n] = cols
+    full_cols = cols + K + 1
+    ia_loc[:n] = pack.nbr_loc[rows, full_cols]
+    ia_feat[:n] = pack.nbr_feat[rows, full_cols]
+    ia_dt[:n] = pack.nbr_dt[rows, full_cols]
+    cache_rslot = ia_rslot = None
+    if pack.nbr_rslot is not None:
+        cache_rslot = np.where(cache_kind == KIND_CACHE,
+                               pack.nbr_rslot[:, :K], -1).astype(np.int32)
+        ia_rslot = np.full(Ei, -1, np.int32)
+        ia_rslot[:n] = pack.nbr_rslot[rows, full_cols]
+    return WirePack(
+        ev_src=pack.ev_src, ev_dst=pack.ev_dst, ev_t=pack.ev_t,
+        ev_idx=pack.ev_idx, ev_valid=pack.ev_valid, ev_neg=pack.ev_neg,
+        ev_src_slot=pack.ev_src_slot, ev_pos_slot=pack.ev_pos_slot,
+        ev_neg_slot=pack.ev_neg_slot,
+        uniq_nid=pack.uniq_nid, root_loc=pack.root_loc,
+        cache_loc=pack.nbr_loc[:, :K].astype(np.int32),
+        cache_feat=cache_feat, cache_dt=pack.nbr_dt[:, :K],
+        self_dt=pack.nbr_dt[:, K],
+        ia_row=ia_row, ia_col=ia_col, ia_loc=ia_loc, ia_feat=ia_feat,
+        ia_dt=ia_dt,
+        mw_node=pack.mw_node, mw_slot=pack.mw_slot,
+        mw_partner=pack.mw_partner, mw_t=pack.mw_t, mw_eid=pack.mw_eid,
+        cache_rslot=cache_rslot, ia_rslot=ia_rslot)
+
+
 def compact_wire(wire: WirePack, num_nodes: int, intra_width: int,
                  mailbox_size: int) -> Optional[CompactWire]:
     """Host-side narrowing of a WirePack (numpy).  Returns None when the

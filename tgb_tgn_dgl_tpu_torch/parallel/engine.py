@@ -82,6 +82,14 @@ def check_sharded(config: FrameworkConfig, dp: int) -> None:
         raise ValueError("ShardedEngine ships the host packer's dedup wire: "
                          "train.device_cache and train.wire_train_lean are "
                          "not supported")
+    if config.sampling.strategy != "recent":
+        # the JAX ShardedEngine's packer gets no t-CSR (tgb_tgn_dgl_tpu
+        # parallel/engine.py:133), so it samples from the recency cache
+        # whatever the strategy says
+        raise ValueError("ShardedEngine samples the 'recent' strategy only "
+                         "(the JAX sharded engine attaches no t-CSR, so "
+                         "'uniform' there is 'recent'); use Engine for "
+                         "sampling.strategy 'uniform'")
     if tr.max_intra_block is None:
         raise ValueError("ShardedEngine needs a fixed train.max_intra_block")
     if tr.batch_size % dp:

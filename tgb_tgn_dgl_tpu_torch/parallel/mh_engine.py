@@ -87,8 +87,9 @@ class MultiHostEngine(Engine):
     ``device=None`` meaning the GPU as for ``Engine``.
 
     Needs a fixed ``train.max_intra_block`` (every range's intra width is
-    the cap), the host packer's WirePack (not device-cache mode) and one
-    attention layer: the composition shifts no same-block root slots."""
+    the cap), the host packer's WirePack (not device-cache mode), the
+    'recent' strategy and one attention layer: the composition shifts no
+    same-block root slots."""
 
     def __init__(self, data, config: FrameworkConfig, n_hosts: int,
                  exchange: str = "replicated", device=None):
@@ -100,6 +101,15 @@ class MultiHostEngine(Engine):
         if config.train.max_intra_block is None:
             raise ValueError("MultiHostEngine needs a fixed "
                              "train.max_intra_block")
+        if config.sampling.strategy != "recent":
+            # the JAX MultiHostEngine's scratch packer has no t-CSR
+            # (tgb_tgn_dgl_tpu parallel/mh_engine.py:119-120), and its
+            # exchange's snapshots leave out the packer's draws
+            raise ValueError("MultiHostEngine samples the 'recent' strategy "
+                             "only (the JAX engine's range packs have no "
+                             "t-CSR and its exchange drops the uniform "
+                             "draws); use Engine for sampling.strategy "
+                             "'uniform'")
         if config.train.device_cache or config.gnn.layer != 1:
             raise ValueError("MultiHostEngine composes host-packed wires "
                              "at one attention layer (no train.device_cache,"

@@ -16,9 +16,12 @@ wire where a batch needs it, and evaluates by the slot-unique protocol
 wherever its structural gate opens (engine/train.py); a config that sets
 one of those knobs is refused as an unknown key rather than ignored.
 
-Knobs the schema carries but the port does not run yet (``train.remat``,
-'uniform' sampling, bfloat16) are rejected by ``Engine`` with
-NotImplementedError; an unknown ``gnn.arch`` raises ValueError
+``sampling.strategy`` takes 'recent' (the streaming recency cache) or
+'uniform' (K uniform draws from the t-CSR of the whole history, data/
+tcsr.py), ``train.compute_dtype`` 'float32' or 'bfloat16' (the embedding's
+dense compute, models/tgnn.py), and ``train.remat`` recomputes the
+memory-mode embedding in the backward; ``validate`` refuses another
+strategy or dtype, and an unknown ``gnn.arch`` raises ValueError
 (models/factory.py).  As in the JAX package, ``gnn.layer``,
 ``sampling.layer`` and ``gnn.message_mode`` are not checked here: the
 model refuses a ``gnn.layer`` outside 1..8 and a ``message_mode`` other
@@ -119,8 +122,8 @@ class TrainConfig:
     # each train epoch after N batches.  0 = off.
     sanity_batches: int = 0
     # Recompute the embedding's grid residuals in the backward of the
-    # memory-mode step (the JAX package's jax.checkpoint knob).  Not
-    # ported: Engine refuses True.
+    # memory-mode step (the JAX package's jax.checkpoint knob; here
+    # torch.utils.checkpoint with the dropout generator replayed)
     remat: bool = False
     # The train-lean wire (ops/wire.py::train_lean_dedup): train dedup
     # wires ship the pre-batch clock rows of their unique table and the
@@ -167,6 +170,12 @@ class FrameworkConfig:
         if t.reorder is not None:
             raise NotImplementedError(
                 "train.reorder is schema-only; leave it unset")
+        if s.strategy not in ("recent", "uniform"):
+            raise ValueError(f"sampling.strategy={s.strategy!r}: expected "
+                             f"'recent' or 'uniform'")
+        if t.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"train.compute_dtype={t.compute_dtype!r}: "
+                             f"expected 'float32' or 'bfloat16'")
         return self
 
 

@@ -4,9 +4,14 @@ tgb_tgn_dgl_tpu/utils/metrics.py.
   * ``MetricsLogger`` — an append-only jsonl event log (one JSON object
     per line: ``event``, the wall time since the logger opened, and the
     caller's fields);
+  * ``SectionTimers`` — named wall-clock section timers with exponential
+    moving averages (the per-section breakdown of a pipeline);
   * ``profile`` — a context manager around ``torch.profiler`` that writes
     a Chrome trace (``trace.json``, readable by Perfetto) under its
-    directory, with the CUDA activity only when the device is CUDA.
+    directory, with the CUDA activity only when the device is CUDA;
+  * ``annotate`` — a named region inside such a trace
+    (``torch.profiler.record_function``, the counterpart of
+    ``jax.profiler.TraceAnnotation``).
 """
 from __future__ import annotations
 
@@ -48,6 +53,52 @@ class MetricsLogger:
             self._fh = None
 
 
+class SectionTimers:
+    """Named wall-clock section timers with exponential moving averages —
+    the per-section breakdown (pack / transfer / device / metrics) that
+    identifies a pipeline's bottleneck.
+
+    >>> t = SectionTimers()
+    >>> with t.section("pack"):
+    ...     pass
+    >>> t.summary()["pack"]["count"]
+    1
+    """
+
+    def __init__(self, alpha: float = 0.1):
+        self.alpha = alpha
+        self.ema: Dict[str, float] = {}
+        self.total: Dict[str, float] = {}
+        self.count: Dict[str, int] = {}
+
+    @contextlib.contextmanager
+    def section(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            self.ema[name] = (dt if name not in self.ema
+                              else (1 - self.alpha) * self.ema[name]
+                              + self.alpha * dt)
+            self.total[name] = self.total.get(name, 0.0) + dt
+            self.count[name] = self.count.get(name, 0) + 1
+
+    def summary(self) -> Dict[str, Dict[str, float]]:
+        """Per section: the moving average and the mean in ms, the total
+        in s, the count."""
+        return {
+            name: {
+                "ema_ms": round(self.ema[name] * 1e3, 3),
+                "mean_ms": round(self.total[name] / self.count[name] * 1e3,
+                                 3),
+                "total_s": round(self.total[name], 3),
+                "count": self.count[name],
+            }
+            for name in self.total
+        }
+
+
 @contextlib.contextmanager
 def profile(log_dir: str, device="cuda"):
     """torch.profiler trace around a region, written as
@@ -64,3 +115,9 @@ def profile(log_dir: str, device="cuda"):
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
 
+
+def annotate(name: str):
+    """A named region inside a ``profile`` trace (a context manager)."""
+    import torch
+
+    return torch.profiler.record_function(name)
