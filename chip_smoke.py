@@ -2394,8 +2394,8 @@ def _wire_bytes_spy(eng, out):
     from tgb_tgn_dgl_tpu_torch.ops.wire import wire_nbytes
     packed = eng._packed
 
-    def spy(jobs, tm, *args):
-        for meta, (wire, iw) in packed(jobs, tm, *args):
+    def spy(jobs, *args):
+        for meta, (wire, iw) in packed(jobs, *args):
             out.append(wire_nbytes(wire))
             yield meta, (wire, iw)
 

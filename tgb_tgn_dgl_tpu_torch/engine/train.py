@@ -151,7 +151,7 @@ from ..ops.neighbor_cache import NeighborCacheState
 from ..ops.wire import (DedupWire, compact_wire, eval_lean_dedup, expand_any,
                         nb_bucket_of, train_lean_dedup, wire_to_device)
 from ..utils.config import FrameworkConfig
-from ..utils.metrics import MetricsLogger
+from ..utils.metrics import MetricsLogger, SectionTimers, span
 from .checkpoint import (CHECKPOINT_SUFFIX, EarlyStopMonitor, load_state,
                          rng_state_from_array, rng_state_to_array, save_state)
 from .evaluator import ap_auc, parse_eval_metric, rank_metric_from_counts
@@ -380,7 +380,7 @@ class Engine:
             self._nb_buckets[split] = nb_bucket_of(self.blocks_for(split))
         return self._nb_buckets[split]
 
-    def _packed(self, jobs, tm, nb_bucket: int = 0):
+    def _packed(self, jobs, nb_bucket: int = 0):
         """Yields (meta, (wire, intra_width)) for each job (meta, args, kw)
         of ``jobs``, in order.  The native packer runs one job ahead on its
         C++ worker (JAX ``_prefetch_pipelined`` and
@@ -388,8 +388,8 @@ class Engine:
         yielded, so it packs while the caller dispatches job i.  Submission
         order is stream order, and the pending job is fetched before the
         generator ends, so nothing past ``jobs`` is packed.
-        ``tm["fetch_s"]`` gathers the time spent in the packer's fetch (the
-        wait for the worker and the read of its buffers).
+        The ``feed.fetch`` span holds the packer's fetch (the wait for the
+        worker and the read of its buffers).
 
         At gnn.layer > 1 the worker cannot take the job (its dedup wire
         carries no rslot; JAX ``sync_pack``, engine/train.py:1546-1597),
@@ -397,30 +397,28 @@ class Engine:
         packs it on its main thread, :1506-1511), and in device-cache mode
         the lean packer has none (JAX packs lean wires on its main thread,
         :1494-1498, :1660-1663): each job is packed on this thread when
-        it is reached, and ``tm["fetch_s"]`` takes that whole pack.
+        it is reached, and ``feed.fetch`` holds that whole pack.
 
         With ``nb_bucket`` (train jobs with the train-lean wire) each dedup
         wire goes train-lean: the packer's clocks are read after the
         previous job's fetch, whose pack advanced them, and before this
         job's submit hands it to the worker (JAX :1544-1563).  A job
         handed back (P > 255) is packed on this thread as a compact wire,
-        with its Δt."""
+        with its Δt, inside ``feed.fetch`` too."""
         if self._sync_pack:
             for job in jobs:
-                t0 = time.perf_counter()
-                out = self._pack_wire(job[1], job[2])
-                tm["fetch_s"] += time.perf_counter() - t0
+                with span("feed.fetch"):
+                    out = self._pack_wire(job[1], job[2])
                 yield job[0], out
             return
 
         def fetch(job, clock):
-            t0 = time.perf_counter()
-            out = self.packer.pack_wire_dedup_fetch()
-            tm["fetch_s"] += time.perf_counter() - t0
-            # None: P > 255 and the state untouched, so pack the same
-            # batch on this thread
-            if out is None:
-                return self._pack_wire(job[1], job[2])
+            with span("feed.fetch"):
+                out = self.packer.pack_wire_dedup_fetch()
+                # None: P > 255 and the state untouched, so pack the same
+                # batch on this thread
+                if out is None:
+                    return self._pack_wire(job[1], job[2])
             if clock is not None:
                 out = (train_lean_dedup(out[0], job[1][4], nb_bucket,
                                         clock), out[1])
@@ -510,28 +508,35 @@ class Engine:
         return init_memory_state(self.mem_cfg, self.device)
 
     def _apply_mail(self, pack):
-        if self.eager_memory:
-            return eager_apply_mail(self.model.memory, self.mem_cfg,
-                                    self.mem_state, pack.uniq_nid)
-        return apply_mail(self.model.memory, self.mem_cfg, self.mem_state,
-                          pack.uniq_nid, self.feats)
+        """The batch's read set with its pending mail applied: (memory
+        rows, last-update rows), in the ``step.memory.apply`` span."""
+        with span("step.memory.apply"):
+            if self.eager_memory:
+                return eager_apply_mail(self.model.memory, self.mem_cfg,
+                                        self.mem_state, pack.uniq_nid)
+            return apply_mail(self.model.memory, self.mem_cfg,
+                              self.mem_state, pack.uniq_nid, self.feats)
 
     def _commit(self, pack, mem_rows, lu_rows, embed=None) -> None:
         """Write the batch into the memory state, in place.  DyRep's mail
         is built here from ``embed``, the batch's root-slot embeddings, and
-        the model's current time encoder: call it before the Adam step."""
-        mem_rows, lu_rows = mem_rows.detach(), lu_rows.detach()
-        if not self.eager_memory:
-            self.mem_state = commit(
+        the model's current time encoder: call it before the Adam step.
+        In the ``step.memory.commit`` span."""
+        with span("step.memory.commit"):
+            mem_rows, lu_rows = mem_rows.detach(), lu_rows.detach()
+            if not self.eager_memory:
+                self.mem_state = commit(
+                    self.mem_cfg, self.mem_state, pack.uniq_nid, mem_rows,
+                    lu_rows, pack.mw_node, pack.mw_slot, pack.mw_partner,
+                    pack.mw_t, pack.mw_eid)
+                return
+            mail = dyrep_messages(self.mem_cfg, embed.detach(), pack,
+                                  self.feats, self.model.time, mem_rows,
+                                  lu_rows)
+            self.mem_state = eager_commit(
                 self.mem_cfg, self.mem_state, pack.uniq_nid, mem_rows,
-                lu_rows, pack.mw_node, pack.mw_slot, pack.mw_partner,
-                pack.mw_t, pack.mw_eid)
-            return
-        mail = dyrep_messages(self.mem_cfg, embed.detach(), pack, self.feats,
-                              self.model.time, mem_rows, lu_rows)
-        self.mem_state = eager_commit(
-            self.mem_cfg, self.mem_state, pack.uniq_nid, mem_rows, lu_rows,
-            pack.mw_node, pack.mw_slot, mail, pack.mw_t, pack.mw_eid)
+                lu_rows, pack.mw_node, pack.mw_slot, mail, pack.mw_t,
+                pack.mw_eid)
 
     def _embed(self, pack, mem_rows, lu_rows, train: bool):
         """Root-slot embeddings of a device pack by the model's arch: from
@@ -578,24 +583,32 @@ class Engine:
     def _train_step(self, pack, acc: torch.Tensor):
         """One Adam step on a device pack (tgb_tgn_dgl_tpu
         engine/train.py:397-496); returns (loss, acc) with the running
-        accumulator [Σ loss·n, Σ ap, Σ auc, batches] (:369-379)."""
+        accumulator [Σ loss·n, Σ ap, Σ auc, batches] (:369-379).  Its
+        parts are the spans ``step.memory.apply``, ``step.embed`` (with
+        the prediction and the loss), ``step.backward``,
+        ``step.memory.commit``, ``step.adam`` and ``step.stats``."""
         self.optimizer.zero_grad(set_to_none=True)
         mem_rows = lu_rows = None
         if self.use_memory:
             mem_rows, lu_rows = self._apply_mail(pack)
-        embed = self._embed(pack, mem_rows, lu_rows, train=True)
-        pos, neg = arch_predict(self.model, embed, pack)
-        loss = bce_loss(pos, neg, pack.ev_valid)
-        loss.backward()
+        with span("step.embed"):
+            embed = self._embed(pack, mem_rows, lu_rows, train=True)
+            pos, neg = arch_predict(self.model, embed, pack)
+            loss = bce_loss(pos, neg, pack.ev_valid)
+        with span("step.backward"):
+            loss.backward()
         if self.use_memory:
             # after backward, since the state's tensors are written in
             # place; before the Adam step, since DyRep's mail reads the
             # step's parameters
             self._commit(pack, mem_rows, lu_rows, embed)
-        self.optimizer.step()
+        with span("step.adam"):
+            self.optimizer.step()
         loss = loss.detach()
-        return loss, self._accumulate(acc, loss, pos.detach(), neg.detach(),
-                                      pack.ev_valid)
+        with span("step.stats"):
+            acc = self._accumulate(acc, loss, pos.detach(), neg.detach(),
+                                   pack.ev_valid)
+        return loss, acc
 
     @staticmethod
     @torch.no_grad()
@@ -619,7 +632,11 @@ class Engine:
         gnn.layer > 1 the whole pack, on this thread) and ``copy_s`` in
         ``wire_to_device``, and ``disp_s``, the time it spent dispatching
         the expansion and the train step (in device-cache mode the
-        advance of the resident state too)."""
+        advance of the resident state too); and ``spans``, every span's
+        ``s``, ``self_s`` and ``n`` (``SectionTimers.summary``): ``feed``
+        (``pack_s``) with ``feed.fetch`` and ``feed.copy``, and ``step``
+        (``disp_s``) with ``step.expand``, the train step's parts
+        (``_train_step``) and ``step.advance``."""
         self.packer.reset_cache()
         if self.device_cache:
             self.sstate = reset_stream_cache(self.sstate)
@@ -628,35 +645,34 @@ class Engine:
             self.mem_state = self._fresh_memory_state()
         acc = torch.zeros(4, dtype=torch.float32, device=self.device)
         total = nb = 0
-        pack_s = disp_s = 0.0
-        tm = {"fetch_s": 0.0, "copy_s": 0.0}
+        timers = SectionTimers()
         t0 = time.perf_counter()
-        wires = self._packed(self._train_jobs(), tm,
-                             self._train_nb_bucket() if self.train_lean
-                             else 0)
-        while True:
-            t1 = time.perf_counter()
-            nxt = next(wires, None)
-            if nxt is None:
-                pack_s += time.perf_counter() - t1
-                break
-            (lo, hi), (wire, iw) = nxt
-            tc = time.perf_counter()
-            wire = wire_to_device(wire, self.device)
-            t2 = time.perf_counter()
-            tm["copy_s"] += t2 - tc
-            pack_s += t2 - t1
-            _, acc = self._train_step(self._expand(wire, iw), acc)
-            if self.device_cache:
-                self._advance(wire, eval_mode=False)
-            disp_s += time.perf_counter() - t2
-            nb += 1
-            self._step += 1
-            total += hi - lo
+        with timers.install():
+            wires = self._packed(self._train_jobs(),
+                                 self._train_nb_bucket() if self.train_lean
+                                 else 0)
+            while True:
+                with span("feed"):
+                    nxt = next(wires, None)
+                    if nxt is not None:
+                        (lo, hi), (wire, iw) = nxt
+                        with span("feed.copy"):
+                            wire = wire_to_device(wire, self.device)
+                if nxt is None:
+                    break
+                with span("step"):
+                    with span("step.expand"):
+                        pack = self._expand(wire, iw)
+                    _, acc = self._train_step(pack, acc)
+                    if self.device_cache:
+                        with span("step.advance"):
+                            self._advance(wire, eval_mode=False)
+                nb += 1
+                self._step += 1
+                total += hi - lo
         vals = acc.cpu().numpy()                    # ONE fetch
         self.last_epoch_trace = {"total_s": time.perf_counter() - t0,
-                                 "pack_s": pack_s, "disp_s": disp_s,
-                                 **tm, "batches": nb}
+                                 **_trace_keys(timers), "batches": nb}
         n = max(float(vals[3]), 1.0)
         return {"loss": float(vals[0]), "ap": float(vals[1] / n),
                 "auc": float(vals[2] / n), "events": total}
@@ -754,7 +770,7 @@ class Engine:
                    dict(eval_mode=True))
 
     def _eval_unique_batches(self, split: str, fixed: FixedNegatives,
-                             B: int, nb_bucket: int, tm):
+                             B: int, nb_bucket: int):
         """Yields ((lo, hi, iw, n_chunks, n_mc), wire, mask) per batch, the
         host half of tgb_tgn_dgl_tpu engine/train.py:880-968: the packer
         runs one batch ahead (``_packed``); each wire goes eval-lean, its
@@ -764,7 +780,7 @@ class Engine:
         (B, 256·n_mc) marks the real (event, negative) pairs, AND-ed with
         the pad+mask validity."""
         for (lo, hi, blk, M, qmask), (wire, iw) in self._packed(
-                self._unique_jobs(split, fixed), tm):
+                self._unique_jobs(split, fixed)):
             if not isinstance(wire, DedupWire):
                 # the gate keeps the intra window within 255, so a batch
                 # the packer handed back means the gate and the packer
@@ -826,17 +842,21 @@ class Engine:
         mem_rows = lu_rows = None
         for c in range(n_chunks):
             rows = slice(c * Rc, (c + 1) * Rc)
-            pack = self._expand(wire._replace(**{
-                f: getattr(wire, f)[rows] for f in SLOT_FIELDS}), iw)
+            with span("step.expand"):
+                pack = self._expand(wire._replace(**{
+                    f: getattr(wire, f)[rows] for f in SLOT_FIELDS}), iw)
             if c == 0:
                 # the chunk-independent parts (read set, write plan) are
                 # the same in every chunk's expansion
                 pack0 = pack
                 if self.use_memory:
                     mem_rows, lu_rows = self._apply_mail(pack0)
-            emb[rows] = self._embed(pack, mem_rows, lu_rows, train=False)
-        opt, pes = self._unique_counts(emb, wire, mask, n_mc)
-        acc = self._finalize(acc, opt, pes, valid)
+            with span("step.embed"):
+                emb[rows] = self._embed(pack, mem_rows, lu_rows,
+                                        train=False)
+        with span("step.score"):
+            opt, pes = self._unique_counts(emb, wire, mask, n_mc)
+            acc = self._finalize(acc, opt, pes, valid)
         if self.use_memory:
             self._commit(pack0._replace(root_loc=wire.root_loc), mem_rows,
                          lu_rows, emb)
@@ -871,8 +891,12 @@ class Engine:
         the same stream state.  ``last_eval_trace`` holds ``protocol``,
         ``pack_s`` (getting each next device wire, with its parts
         ``fetch_s`` and ``copy_s``), ``disp_s``, ``batches``,
-        ``embed_chunks`` and ``score_chunks``, and ``chunks``, the
-        embedding's launches (``embed_chunks``)."""
+        ``embed_chunks`` and ``score_chunks``, ``chunks``, the
+        embedding's launches (``embed_chunks``), and ``spans``, as
+        ``last_epoch_trace`` has them: ``step`` (``disp_s``) holds
+        ``step.expand``, ``step.memory.apply``, ``step.embed``,
+        ``step.score``, ``step.memory.commit`` and ``step.advance``
+        (``step.expand`` and ``step.embed`` once an embed chunk)."""
         nb_bucket = self._eval_unique_bucket(split)
         if nb_bucket is None:
             return self._evaluate_chunked(split)
@@ -901,8 +925,8 @@ class Engine:
                                           acc, n_chunks, n_mc)
 
         return self._eval_pass(
-            "slot_unique", lambda tm: self._eval_unique_batches(
-                split, fixed, B, nb_bucket, tm), dispatch, n)
+            "slot_unique", self._eval_unique_batches(split, fixed, B,
+                                                     nb_bucket), dispatch, n)
 
     def _evaluate_chunked(self, split: str) -> float:
         """The column-chunk pass (tgb_tgn_dgl_tpu engine/train.py:1599-1627):
@@ -921,9 +945,9 @@ class Engine:
         nb_bucket = nb_bucket_of(self.blocks_for(split))
         counts = {}
 
-        def items(tm):
+        def items():
             for meta, (wire, iw) in self._packed(
-                    self._eval_jobs(split, fixed, B), tm):
+                    self._eval_jobs(split, fixed, B)):
                 lo, hi, blk, first, last, mask_c = meta
                 if isinstance(wire, DedupWire):
                     wire = eval_lean_dedup(wire, blk, nb_bucket)
@@ -934,61 +958,63 @@ class Engine:
             if first:
                 counts["opt"] = counts["pes"] = torch.zeros(
                     B, dtype=torch.int64, device=self.device)
-            pack = (self._expand_lean(wire, iw, eval_mode=True)
-                    if self.device_cache else self._expand(wire, iw))
+            with span("step.expand"):
+                pack = (self._expand_lean(wire, iw, eval_mode=True)
+                        if self.device_cache else self._expand(wire, iw))
             mem_rows = lu_rows = None
             if self.use_memory:
                 # applied mail is cleared by the commit, so applying and
                 # committing on every chunk is idempotent; only the last
                 # chunk carries a write plan
                 mem_rows, lu_rows = self._apply_mail(pack)
-            embed = self._embed(pack, mem_rows, lu_rows, train=False)
+            with span("step.embed"):
+                embed = self._embed(pack, mem_rows, lu_rows, train=False)
             if self.use_memory:
                 self._commit(pack, mem_rows, lu_rows, embed)
             if last and self.device_cache:
-                self._advance(wire, eval_mode=True)
-            counts["opt"], counts["pes"] = self._score_counts(
-                embed, pack, counts["opt"], counts["pes"], mask_c)
+                with span("step.advance"):
+                    self._advance(wire, eval_mode=True)
+            with span("step.score"):
+                counts["opt"], counts["pes"] = self._score_counts(
+                    embed, pack, counts["opt"], counts["pes"], mask_c)
+                if last:
+                    acc = self._finalize(acc, counts["opt"], counts["pes"],
+                                         ar < (hi - lo))
             n["embed_chunks"] += 1
             n["score_chunks"] += 1
             if last:
                 n["batches"] += 1
-                acc = self._finalize(acc, counts["opt"], counts["pes"],
-                                     ar < (hi - lo))
             return acc
 
-        return self._eval_pass("column_chunk", items, dispatch, n)
+        return self._eval_pass("column_chunk", items(), dispatch, n)
 
     @torch.no_grad()
     def _eval_pass(self, protocol: str, items, dispatch, n) -> float:
-        """The loop both protocols share: ``items(tm)`` yields (meta, host
-        wire, host mask or None); each wire crosses with its mask in one
-        staging buffer and copy, ``dispatch`` adds to the device
-        accumulator, and the pass fetches it once."""
+        """The loop both protocols share: ``items`` yields (meta, host
+        wire, host mask or None), in the ``feed`` span; each wire crosses
+        with its mask in one staging buffer and copy, ``dispatch`` adds to
+        the device accumulator in the ``step`` span, and the pass fetches
+        it once."""
         acc = torch.zeros(2, dtype=torch.float32, device=self.device)
-        pack_s = disp_s = 0.0
-        tm = {"fetch_s": 0.0, "copy_s": 0.0}
+        timers = SectionTimers()
         t0 = time.perf_counter()
-        it = items(tm)
-        while True:
-            t1 = time.perf_counter()
-            nxt = next(it, None)
-            if nxt is None:
-                pack_s += time.perf_counter() - t1
-                break
-            meta, wire, mask = nxt
-            tc = time.perf_counter()
-            wire, mask = wire_to_device(wire, self.device, mask)
-            t2 = time.perf_counter()
-            tm["copy_s"] += t2 - tc
-            pack_s += t2 - t1
-            acc = dispatch(meta, wire, mask, acc)
-            disp_s += time.perf_counter() - t2
+        with timers.install():
+            while True:
+                with span("feed"):
+                    nxt = next(items, None)
+                    if nxt is not None:
+                        meta, wire, mask = nxt
+                        with span("feed.copy"):
+                            wire, mask = wire_to_device(wire, self.device,
+                                                        mask)
+                if nxt is None:
+                    break
+                with span("step"):
+                    acc = dispatch(meta, wire, mask, acc)
         vals = acc.cpu().numpy()                    # ONE fetch
         self.last_eval_trace = {"total_s": time.perf_counter() - t0,
-                                "pack_s": pack_s, "disp_s": disp_s,
-                                **tm, "protocol": protocol, **n,
-                                "chunks": n["embed_chunks"]}
+                                **_trace_keys(timers), "protocol": protocol,
+                                **n, "chunks": n["embed_chunks"]}
         return float(vals[0] / max(float(vals[1]), 1.0))
 
     # --------------------------------------------------- bucket pre-warming
@@ -1280,6 +1306,15 @@ class Engine:
         if self.use_memory:
             self.mem_state = type(self.mem_state)(**st["mem_state"])
         return st
+
+
+def _trace_keys(timers: SectionTimers) -> Dict[str, object]:
+    """The span sums an epoch's or a pass's trace has always had, under
+    their old names, and every span."""
+    return {"pack_s": timers.seconds("feed"), "disp_s": timers.seconds("step"),
+            "fetch_s": timers.seconds("feed.fetch"),
+            "copy_s": timers.seconds("feed.copy"),
+            "spans": timers.summary()}
 
 
 def _clone_state(state):

@@ -4,14 +4,14 @@ tgb_tgn_dgl_tpu/utils/metrics.py.
   * ``MetricsLogger`` — an append-only jsonl event log (one JSON object
     per line: ``event``, the wall time since the logger opened, and the
     caller's fields);
-  * ``SectionTimers`` — named wall-clock section timers with exponential
-    moving averages (the per-section breakdown of a pipeline);
+  * ``SectionTimers`` and ``span`` — the port's one span recorder:
+    named, nested sections of the host's time (seconds, self seconds,
+    counts) that are also named regions of a profiler trace while one
+    records (``torch.profiler.record_function``, the counterpart of
+    ``jax.profiler.TraceAnnotation``);
   * ``profile`` — a context manager around ``torch.profiler`` that writes
     a Chrome trace (``trace.json``, readable by Perfetto) under its
-    directory, with the CUDA activity only when the device is CUDA;
-  * ``annotate`` — a named region inside such a trace
-    (``torch.profiler.record_function``, the counterpart of
-    ``jax.profiler.TraceAnnotation``).
+    directory, with the CUDA activity only when the device is CUDA.
 """
 from __future__ import annotations
 
@@ -19,7 +19,9 @@ import contextlib
 import json
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
+
+import torch
 
 TRACE_FILE = "trace.json"
 
@@ -54,49 +56,96 @@ class MetricsLogger:
 
 
 class SectionTimers:
-    """Named wall-clock section timers with exponential moving averages —
-    the per-section breakdown (pack / transfer / device / metrics) that
-    identifies a pipeline's bottleneck.
+    """The port's span recorder: named, nested sections of the host's
+    time, each with its seconds (``s``), its self seconds (``self_s``: its
+    seconds less its children's) and its count (``n``).  While a
+    torch.profiler records, each section is also a ``record_function`` of
+    the same name, so that it lands in the profiler's trace on the
+    profiler's clock; with none recording it never touches one (a span
+    then costs a flag check and two clock reads).
 
     >>> t = SectionTimers()
-    >>> with t.section("pack"):
-    ...     pass
-    >>> t.summary()["pack"]["count"]
+    >>> with t.section("feed"):
+    ...     with t.section("feed.copy"):
+    ...         pass
+    >>> t.summary()["feed.copy"]["n"]
     1
+
+    Code below an entry point reaches the recorder the entry point
+    ``install``-ed through ``span(name)``, with no argument passed down.
     """
 
-    def __init__(self, alpha: float = 0.1):
-        self.alpha = alpha
-        self.ema: Dict[str, float] = {}
+    def __init__(self):
         self.total: Dict[str, float] = {}
+        self.own: Dict[str, float] = {}
         self.count: Dict[str, int] = {}
+        # per open section, the seconds of its closed children
+        self._open: List[float] = []
 
-    @contextlib.contextmanager
-    def section(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self.ema[name] = (dt if name not in self.ema
-                              else (1 - self.alpha) * self.ema[name]
-                              + self.alpha * dt)
-            self.total[name] = self.total.get(name, 0.0) + dt
-            self.count[name] = self.count.get(name, 0) + 1
+    def section(self, name: str) -> "_Span":
+        """A context manager: one span of ``name`` on this recorder."""
+        return _Span(self, name)
+
+    def seconds(self, name: str) -> float:
+        return self.total.get(name, 0.0)
 
     def summary(self) -> Dict[str, Dict[str, float]]:
-        """Per section: the moving average and the mean in ms, the total
-        in s, the count."""
-        return {
-            name: {
-                "ema_ms": round(self.ema[name] * 1e3, 3),
-                "mean_ms": round(self.total[name] / self.count[name] * 1e3,
-                                 3),
-                "total_s": round(self.total[name], 3),
-                "count": self.count[name],
-            }
-            for name in self.total
-        }
+        """Per section name: ``s``, ``self_s`` and ``n``."""
+        return {name: {"s": self.total[name], "self_s": self.own[name],
+                       "n": self.count[name]} for name in self.total}
+
+    @contextlib.contextmanager
+    def install(self):
+        """Make this the recorder ``span`` reports to, for the block."""
+        global _current
+        prev, _current = _current, self
+        try:
+            yield self
+        finally:
+            _current = prev
+
+
+# the recorder ``span`` reports to (``SectionTimers.install``), or None
+_current: Optional[SectionTimers] = None
+# whether a torch profiler records (the flag ``record_function`` reads)
+_profiling = torch._C._autograd._profiler_enabled
+
+
+class _Span:
+    __slots__ = ("rec", "name", "fn", "t0")
+
+    def __init__(self, rec: Optional[SectionTimers], name: str):
+        self.rec, self.name = rec, name
+
+    def __enter__(self):
+        self.fn = None
+        if _profiling():
+            self.fn = torch.profiler.record_function(self.name)
+            self.fn.__enter__()
+        if self.rec is not None:
+            self.rec._open.append(0.0)
+            self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        rec = self.rec
+        if rec is not None:
+            dt = time.perf_counter() - self.t0
+            name = self.name
+            rec.total[name] = rec.total.get(name, 0.0) + dt
+            rec.own[name] = rec.own.get(name, 0.0) + dt - rec._open.pop()
+            rec.count[name] = rec.count.get(name, 0) + 1
+            if rec._open:
+                rec._open[-1] += dt
+        if self.fn is not None:
+            self.fn.__exit__(*exc)
+        return False
+
+
+def span(name: str) -> _Span:
+    """A section of the installed recorder (none: only the profiler's
+    ``record_function``, while one records)."""
+    return _Span(_current, name)
 
 
 @contextlib.contextmanager
@@ -104,7 +153,6 @@ def profile(log_dir: str, device="cuda"):
     """torch.profiler trace around a region, written as
     ``<log_dir>/trace.json``; CUDA is traced when ``device`` is a CUDA
     device, the host always."""
-    import torch
     from torch.profiler import ProfilerActivity
 
     activities = [ProfilerActivity.CPU]
@@ -115,9 +163,3 @@ def profile(log_dir: str, device="cuda"):
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
 
-
-def annotate(name: str):
-    """A named region inside a ``profile`` trace (a context manager)."""
-    import torch
-
-    return torch.profiler.record_function(name)
