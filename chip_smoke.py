@@ -25,7 +25,17 @@ device, phase by phase, one JSON line per phase:
              chunk, the dropout pair at the train batch and at the multi-host
              composed step's 2 x and 4 x 6,144 root slots, and every
              kernel at the sharded engine's dp = 2 shares (3,072 train
-             root slots, half the slot-unique chunk)
+             root slots, half the slot-unique chunk); then the memory-row
+             gather's backward (csrc/gather.cu through ops/gather.py) at
+             the train cell's batch, 1,056,768 slots of D = 100 into
+             7,168 rows with the packer's skew (70% of the slots on the
+             trash row, 2% on one hub) in fp32 and bf16, with the same
+             slots spread, and at the roots' 24,576 slots: each row within
+             2e-6 (fp32) / 8e-3 (bf16) of its norm of a float64 sum, rows
+             with no slot 0, a second call the same bits; ms is the kernel
+             alone on sorted keys, op_ms the op with its sort, aten_ms
+             aten's embedding_dense_backward (the backward it replaced) on
+             the same keys, beside the byte bound
   reference  a tiny stream trained and evaluated (val, then test, by the
              slot-unique protocol) by the port on the GPU and on the CPU
              (plain versions) from the same weights
@@ -307,7 +317,12 @@ device, phase by phase, one JSON line per phase:
              and memory: the float32 arm's counts; remat:
              attention_fwd_drop twice a step, attention_bwd_drop once),
              each path's counts set to 0 just before it; the kernel table
-             sums them
+             sums them.  gather_bwd beside them on the paths that count
+             it: twice a train step where a memory model with attention
+             trains (memory, layer-2, vector, DyRep, fit, device-cache and
+             train-lean memory, multi-host memory and DyRep, bf16 and
+             remat memory), never in an eval pass, none on the frozen,
+             JODIE and 'uniform' paths
   profile    torch.profiler over 4 train steps and one val batch (by the
              slot-unique and by the column-chunk protocol) of a fresh
              engine, frozen, memory, JODIE and DyRep, and at gnn.layer 2
@@ -412,10 +427,37 @@ VECTOR_STEPS = 8
 # DyRep's stored mail ends with cos(w·Δt + b): at |Δt| up to ~10^3 one ulp
 # of the fp32 argument is 6e-5, so those columns get their own tolerance
 MAIL_TE_TOL = 1e-3
+# the memory-row gather's backward at the train cell's batch (R 24,576
+# root slots x Kp 43 columns, D 100, Ub up to 7,168 rows): (label, slots,
+# key layout, dtype), the first the kernel table's record; 'skew' is the
+# packer's layout (70% on the trash row, 2% on one hub, the rest
+# uniform), 'spread' the same slots uniform over the rows
+GATHER_SOURCE = "tgb_tgn_dgl_tpu_torch/csrc/gather.cu"
+GATHER_U, GATHER_D = 7_168, 100
+GATHER_SHAPES = [("train", 24_576 * 43, "skew", "float32"),
+                 ("train_bf16", 24_576 * 43, "skew", "bfloat16"),
+                 ("train_spread", 24_576 * 43, "spread", "float32"),
+                 ("roots", 24_576, "skew", "float32")]
+GATHER_TOL = {"float32": 2e-6, "bfloat16": 8e-3}   # of each row's norm
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def reset_counts(attention) -> None:
+    """The attention kernels' launch counters and the gather backward's
+    from 0."""
+    from tgb_tgn_dgl_tpu_torch.ops import gather
+    attention.reset_launch_counts()
+    gather.reset_launch_counts()
+
+
+def counts_now(attention) -> dict:
+    """Launches since ``reset_counts``: the attention kernels' and
+    ``gather_bwd``."""
+    from tgb_tgn_dgl_tpu_torch.ops import gather
+    return {**attention.launch_counts, **gather.launch_counts}
 
 
 def nvidia_smi_line() -> str:
@@ -504,7 +546,96 @@ def kernel_bound(name, R, Kp, H):
             "operations", nbytes)
 
 
-def phase_kernels(torch, attention):
+def gather_keys(torch, S, layout, seed):
+    """(S,) int32 row keys in [0, GATHER_U) laid out as GATHER_SHAPES
+    says, in shuffled slot order."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    U = GATHER_U
+    if layout == "spread":
+        keys = torch.randint(0, U, (S,), generator=g, device="cuda")
+    else:
+        n_trash, n_hub = int(0.7 * S), int(0.02 * S)
+        keys = torch.cat([
+            torch.full((n_trash,), U - 1, device="cuda"),
+            torch.full((n_hub,), 17, device="cuda"),
+            torch.randint(0, U - 1, (S - n_trash - n_hub,), generator=g,
+                          device="cuda")])
+        keys = keys[torch.randperm(S, generator=g, device="cuda")]
+    return keys.to(torch.int32)
+
+
+def _worst_row(torch, got, want, used):
+    err = torch.linalg.vector_norm(got.double() - want, dim=1)
+    norm = torch.linalg.vector_norm(want, dim=1)
+    return float((err[used] / norm[used]).max())
+
+
+def gather_kernel(torch, gather, flush) -> dict:
+    """The memory-row gather's backward at GATHER_SHAPES: checked against
+    a float64 ``index_add_`` and timed beside aten's
+    ``embedding_dense_backward``.  Bound: keys, gradient and table each
+    moved once.  Returns the first shape's record."""
+    from tgb_tgn_dgl_tpu_torch.utils.flops import H100_PEAK_HBM_BPS
+    U, D = GATHER_U, GATHER_D
+    records = []
+    for si, (label, S, layout, dtype) in enumerate(GATHER_SHAPES):
+        keys = gather_keys(torch, S, layout, seed=100 + si)
+        long_keys = keys.long()
+        gen = torch.Generator(device="cuda").manual_seed(200 + si)
+        g = torch.randn((S, D), generator=gen, device="cuda").to(
+            getattr(torch, dtype))
+        before = gather.launch_counts["gather_bwd"]
+        got = gather.gather_bwd(keys, g, U)
+        if gather.launch_counts["gather_bwd"] != before + 1:
+            raise AssertionError(f"gather_bwd {label}: not counted")
+        want = torch.zeros((U, D), dtype=torch.float64, device="cuda")
+        want.index_add_(0, long_keys, g.double())
+        rows = torch.bincount(long_keys, minlength=U)
+        used = rows > 0
+        aten = torch.ops.aten.embedding_dense_backward(g, long_keys, U, -1,
+                                                       False)
+        key, slot = torch.sort(keys, stable=True)
+        out = torch.zeros_like(got)
+        worst = _worst_row(torch, got, want, used)
+        ok = (bool(torch.isfinite(got).all()) and worst <= GATHER_TOL[dtype]
+              and bool((got[~used] == 0).all()))
+        ms = time_ms(torch, lambda: gather.gather_bwd_sorted(key, slot, g,
+                                                             out), flush)
+        # the kernel into a table it wrote before: the same bits
+        ok = ok and torch.equal(out, got)
+        op = lambda: gather.gather_bwd(keys, g, U)      # noqa: E731
+        nbytes = 4 * S + g.element_size() * (S * D + U * D)
+        bound_ms = nbytes / H100_PEAK_HBM_BPS * 1e3
+        rec = dict(phase="kernels", kernel="gather_bwd", label=label,
+                   timed_at=[S, D, U], keys=layout, dtype=dtype,
+                   largest_row=int(rows.max()), ms=ms,
+                   op_ms=time_ms(torch, op, flush),
+                   wall_ms=time_ms(torch, op, flush, spin=False),
+                   aten_ms=time_ms(
+                       torch, lambda: torch.ops.aten.embedding_dense_backward(
+                           g, long_keys, U, -1, False), flush),
+                   plain_ms=time_ms(
+                       torch, lambda: gather.gather_rows_bwd_reference(
+                           keys, g, U), flush),
+                   bound_ms=bound_ms, bound_by="bytes", bytes=nbytes,
+                   pct_of_bound=100.0 * bound_ms / ms,
+                   worst_row_err=worst,
+                   aten_worst_row_err=_worst_row(torch, aten, want, used),
+                   tol=GATHER_TOL[dtype], ok=ok)
+        rec["op_pct_of_bound"] = 100.0 * bound_ms / rec["op_ms"]
+        emit(rec)
+        if not ok:
+            raise AssertionError(f"gather_bwd {label}: worst row {worst} "
+                                 f"over {GATHER_TOL[dtype]} of its norm, a "
+                                 f"row with no slot not 0, or a second "
+                                 f"call other bits")
+        records.append(rec)
+        del g, aten, want, out
+    return dict(records[0], max_worst_row_err=max(
+        r["worst_row_err"] for r in records))
+
+
+def phase_kernels(torch, attention, gather):
     flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
     infer = "attention_fwd_infer"
     results = {}
@@ -621,6 +752,7 @@ def phase_kernels(torch, attention):
                       pct_of_bound=100.0 * r["bound_ms"] / r["ms"]))
         # the table's record: the first shape
         results[name].update(results[name]["timed"][TIMED_SHAPES[name][0]])
+    results["gather_bwd"] = gather_kernel(torch, gather, flush)
     return results
 
 
@@ -1451,7 +1583,7 @@ def phase_uniform_train(torch, pkg, attention, data, cfg_path, recent):
     import math
 
     from tgb_tgn_dgl_tpu_torch.engine.train import UNIFORM_GATE
-    attention.reset_launch_counts()
+    reset_counts(attention)
     cfg = _full_width(pkg, cfg_path)
     cfg.sampling.strategy = "uniform"
     t0 = time.perf_counter()
@@ -1465,7 +1597,7 @@ def phase_uniform_train(torch, pkg, attention, data, cfg_path, recent):
 
     eng._iter_batches = first_val_batches
     mrr, seconds, erec, vpeak = _val_pass(torch, eng)
-    counts = dict(attention.launch_counts)
+    counts = counts_now(attention)
     train_rec, chunked = recent
     res = dict(phase="uniform_train", strategy="uniform",
                events=stats["events"], loss_sum=stats["loss"],
@@ -1491,7 +1623,7 @@ def phase_uniform_train(torch, pkg, attention, data, cfg_path, recent):
     emit(res)
     want = dict(attention_fwd=0, attention_bwd=0,
                 attention_fwd_drop=tr["steps"], attention_bwd_drop=tr["steps"],
-                attention_fwd_infer=erec["embed_chunks"])
+                attention_fwd_infer=erec["embed_chunks"], gather_bwd=0)
     if not (math.isfinite(stats["loss"]) and 0.0 < mrr <= 1.0
             and erec["protocol"] == "column_chunk"
             and res["gate_closed_by"] == [UNIFORM_GATE]):
@@ -1519,7 +1651,7 @@ def phase_bf16_train(torch, pkg, attention, data, paths):
     for label, cfg_path in paths:
         arms, shapes = {}, {}
         for dtype in ("float32", "bfloat16", "bfloat16", "float32"):
-            attention.reset_launch_counts()
+            reset_counts(attention)
             cfg = _full_width(pkg, cfg_path, compute_dtype=dtype)
             eng, stats, tr, peak = _train_arm(torch, pkg, data, cfg)
             if dtype in arms:               # the second epoch: its speed
@@ -1536,7 +1668,7 @@ def phase_bf16_train(torch, pkg, attention, data, paths):
                                val_peak_mem_gb=vpeak - tr["held_before_gb"],
                                val_protocol=erec["protocol"],
                                embed_chunks=erec["embed_chunks"],
-                               launches=dict(attention.launch_counts))
+                               launches=counts_now(attention))
             del eng
         counts[f"bf16_{label}"] = arms["bfloat16"]["launches"]
         want[f"bf16_{label}"] = arms["float32"]["launches"]
@@ -1572,7 +1704,7 @@ def phase_remat_train(torch, pkg, attention, data, cfg_path):
     torch.use_deterministic_algorithms(True)
     try:
         for remat in (False, True, True, False):
-            attention.reset_launch_counts()
+            reset_counts(attention)
             cfg = _full_width(pkg, cfg_path, remat=remat)
             eng, stats, tr, peak = _train_arm(torch, pkg, data, cfg)
             if remat in arms:               # the second epoch: its speed
@@ -1586,7 +1718,7 @@ def phase_remat_train(torch, pkg, attention, data, cfg_path):
                      {f: t.cpu() for f, t in eng.mem_state._asdict().items()})
             arms[remat] = (state, dict(loss_sum=stats["loss"], **tr,
                                        peak_mem_gb=peak,
-                                       launches=dict(attention.launch_counts)))
+                                       launches=counts_now(attention)))
             del eng
     finally:
         torch.use_deterministic_algorithms(False)
@@ -1596,7 +1728,7 @@ def phase_remat_train(torch, pkg, attention, data, cfg_path):
     steps = ron["steps"]
     want = dict(attention_fwd=0, attention_bwd=0,
                 attention_fwd_drop=2 * steps, attention_bwd_drop=steps,
-                attention_fwd_infer=0)
+                attention_fwd_infer=0, gather_bwd=2 * steps)
     emit(dict(phase="remat_train", remat_off=roff, remat_on=ron,
               unequal_params=params, unequal_memory_fields=memory,
               peak_vs_off=(ron["peak_mem_gb"] + ron["peak_mem_gb_again"])
@@ -1949,7 +2081,7 @@ def phase_fit(torch, root, tmp):
                                                        "ckpt_epoch0001.pt")]),
                 ("test_only", test_only)):
             del passes[:]
-            attention.reset_launch_counts()
+            reset_counts(attention)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = main(argv)
@@ -1960,12 +2092,13 @@ def phase_fit(torch, root, tmp):
                 seconds=time.perf_counter() - t0, epochs_trained=trained,
                 epoch=out["engine"]._epoch, test=out["test"],
                 load_s=out["load_s"],
-                launches=dict(attention.launch_counts),
+                launches=counts_now(attention),
                 expected=dict(attention_fwd=0, attention_bwd=0,
                               attention_fwd_drop=steps * trained,
                               attention_fwd_infer=sum(
                                   p["embed_chunks"] for p in passes),
-                              attention_bwd_drop=steps * trained),
+                              attention_bwd_drop=steps * trained,
+                              gather_bwd=2 * steps * trained),
                 steps_per_epoch=steps, eval_passes=list(passes))
             del out
     finally:
@@ -1989,7 +2122,8 @@ def phase_fit(torch, root, tmp):
     with open(trace) as f:
         text = f.read()
     names = {k: k in text for k in ("attention_fwd_kernel",
-                                    "attention_bwd_kernel")}
+                                    "attention_bwd_kernel",
+                                    "gather_rows_bwd_kernel")}
     res = dict(phase="fit", config="TGN-memory.yml", epochs=epochs,
                val=vals, checkpoints=ckpts,
                load_s=[resumed["load_s"], test_only["load_s"]],
@@ -2751,7 +2885,7 @@ def _mh_train_arm(torch, pkg, attention, data, cfg_path, n_hosts, exchange,
     B = cfg.train.batch_size
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    attention.reset_launch_counts()
+    reset_counts(attention)
     eng = pkg.MultiHostEngine(data, cfg, n_hosts=n_hosts, exchange=exchange)
     t0 = time.perf_counter()
     eng.warm_buckets()
@@ -2782,18 +2916,20 @@ def _mh_train_arm(torch, pkg, attention, data, cfg_path, n_hosts, exchange,
             raise AssertionError(f"multi-host val pass: {vrec}, MRR {mrr}")
         rec.update(val_mrr=mrr, val_seconds=vsec, val=vrec,
                    val_peak_mem_gb=peak)
-    return rec, eng, packer, dict(attention.launch_counts)
+    return rec, eng, packer, counts_now(attention)
 
 
 def _mh_want(rec, launches_per_step=1, embed_chunks=0):
     """The launches a multi-host path must count: the dropout pair once a
     composed step (``launches_per_step`` for DyRep's ranges) and once a
     tail step, the inference forward once an embed chunk of its val
-    pass."""
+    pass, and with the memory the gather backward twice wherever the
+    dropout pair's backward runs once."""
     tr = rec["trace"]
     steps = launches_per_step * tr["super_batches"] + rec["tail_batches"]
     return dict(attention_fwd=0, attention_bwd=0, attention_fwd_drop=steps,
-                attention_bwd_drop=steps, attention_fwd_infer=embed_chunks)
+                attention_bwd_drop=steps, attention_fwd_infer=embed_chunks,
+                gather_bwd=2 * steps if rec["width"]["memory"] else 0)
 
 
 def phase_multihost_train(torch, pkg, attention, data, cfg_path, serial_rec,
@@ -2858,11 +2994,11 @@ def phase_multihost_host_only(torch, pkg, attention, data, cfg_path):
                                       exchange=exchange)
             eng.warm_buckets()
             eng._warmed = True
-            attention.reset_launch_counts()
+            reset_counts(attention)
             stats = eng.train_epoch(host_only=True)
-            if any(attention.launch_counts.values()) or eng._step:
+            if any(counts_now(attention).values()) or eng._step:
                 raise AssertionError(f"host_only launched "
-                                     f"{attention.launch_counts}")
+                                     f"{counts_now(attention)}")
             arms[exchange] = dict(events=stats["events"],
                                   **eng.last_epoch_trace)
             del eng
@@ -3694,7 +3830,7 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository",
               file=sys.stderr)
         return 2
-    from tgb_tgn_dgl_tpu_torch.ops import _build, attention
+    from tgb_tgn_dgl_tpu_torch.ops import _build, attention, gather
     pkg = _package()
     synthetic = pkg.synthetic
     phase = "device"
@@ -3724,7 +3860,7 @@ def main() -> int:
                                         if "registers" in l or "spill" in l])
                          for k, v in report.items()}))
         phase = "kernels"
-        kres = phase_kernels(torch, attention)
+        kres = phase_kernels(torch, attention, gather)
         phase = "reference"
         phase_reference(torch, pkg)
         phase = "memory_reference"
@@ -3771,23 +3907,24 @@ def main() -> int:
         phase = "train_lean_wire"
         phase_train_lean_wire(torch, data, mem_cfg_path)
         phase = "train"
-        attention.reset_launch_counts()
+        reset_counts(attention)
         eng, train_rec = phase_train(torch, pkg, data, cfg_path)
         snap = _stream_state(eng)
         phase = "eval"
         unique = phase_eval(torch, eng)
-        frozen_counts = dict(attention.launch_counts)
+        frozen_counts = counts_now(attention)
         phase = "eval_unique_vs_chunked"
         host_arms = {"": (train_rec, unique, phase_eval_unique_vs_chunked(
             torch, eng, snap, unique, phase))}
         del eng, snap
         phase = "memory_train"
-        attention.reset_launch_counts()
+        reset_counts(attention)
         eng, train_rec = phase_memory_train(torch, pkg, data, mem_cfg_path)
+        memory_steps = train_rec["steps"]
         snap = _stream_state(eng)
         phase = "memory_eval"
         unique = phase_eval(torch, eng, "memory_eval")
-        memory_counts = dict(attention.launch_counts)
+        memory_counts = counts_now(attention)
         phase = "memory_eval_unique_vs_chunked"
         host_arms["memory_"] = (train_rec, unique,
                                 phase_eval_unique_vs_chunked(
@@ -3821,7 +3958,7 @@ def main() -> int:
                                   ("device_cache_memory", mem_cfg_path,
                                    "memory_")):
             phase = f"{path}_train"
-            attention.reset_launch_counts()
+            reset_counts(attention)
             eng = phase_transport_train(torch, pkg, data, cfg_p, phase,
                                         host_arms[host][0],
                                         device_cache=True)
@@ -3829,61 +3966,64 @@ def main() -> int:
             phase = f"{path}_eval"
             dc_eval = phase_device_cache_eval(torch, eng, phase,
                                               *host_arms[host][1:])
-            transport_counts[path] = dict(attention.launch_counts)
+            transport_counts[path] = counts_now(attention)
             transport_want[path] = dict(
                 attention_fwd=0, attention_bwd=0, attention_fwd_drop=steps,
                 attention_bwd_drop=steps,
-                attention_fwd_infer=dc_eval["embed_chunks"])
+                attention_fwd_infer=dc_eval["embed_chunks"],
+                gather_bwd=2 * steps if host else 0)
             del eng
         for path, cfg_p, host in (("train_lean", cfg_path, ""),
                                   ("train_lean_memory", mem_cfg_path,
                                    "memory_")):
             phase = f"{path}_train"
-            attention.reset_launch_counts()
+            reset_counts(attention)
             eng = phase_transport_train(torch, pkg, data, cfg_p, phase,
                                         host_arms[host][0],
                                         wire_train_lean=True)
             steps = eng.last_epoch_trace["batches"]
-            transport_counts[path] = dict(attention.launch_counts)
+            transport_counts[path] = counts_now(attention)
             transport_want[path] = dict(
                 attention_fwd=0, attention_bwd=0, attention_fwd_drop=steps,
-                attention_bwd_drop=steps, attention_fwd_infer=0)
+                attention_bwd_drop=steps, attention_fwd_infer=0,
+                gather_bwd=2 * steps if host else 0)
             del eng
         torch.cuda.empty_cache()
         phase = "layer2_train"
-        attention.reset_launch_counts()
+        reset_counts(attention)
         eng, _ = phase_memory_train(torch, pkg, data, layer2_cfg_path, phase)
         layer2_steps = eng.last_epoch_trace["batches"]
         phase = "layer2_eval"
         layer2 = phase_eval(torch, eng, phase, closed_by="gnn.layer>1")
-        layer2_counts = dict(attention.launch_counts)
+        layer2_counts = counts_now(attention)
         del eng
         phase = "vector_train"
-        attention.reset_launch_counts()
+        reset_counts(attention)
         eng, _ = phase_memory_train(torch, pkg, data, mem_cfg_path, phase,
                                     steps=VECTOR_STEPS,
                                     message_mode="vector")
+        vector_steps = eng.last_epoch_trace["batches"]
         phase = "vector_eval"
         phase_eval(torch, eng, phase)
-        vector_counts = dict(attention.launch_counts)
+        vector_counts = counts_now(attention)
         del eng
         phase = "jodie_train"
-        attention.reset_launch_counts()
+        reset_counts(attention)
         eng, jodie_rec = phase_memory_train(torch, pkg, data, jodie_cfg_path,
                                             phase)
         phase = "jodie_eval"
         phase_eval(torch, eng, phase)
-        jodie_counts = dict(attention.launch_counts)
+        jodie_counts = counts_now(attention)
         del eng
         phase = "dyrep_train"
-        attention.reset_launch_counts()
+        reset_counts(attention)
         eng, dyrep_rec = phase_memory_train(torch, pkg, data, dyrep_cfg_path,
                                             phase)
         dyrep_steps = eng.last_epoch_trace["batches"]
         snap = _stream_state(eng)
         phase = "dyrep_eval"
         dyrep = phase_eval(torch, eng, phase)
-        dyrep_counts = dict(attention.launch_counts)
+        dyrep_counts = counts_now(attention)
         phase = "dyrep_eval_unique_vs_chunked"
         phase_eval_unique_vs_chunked(torch, eng, snap, dyrep, phase)
         del eng, snap
@@ -3918,7 +4058,8 @@ def main() -> int:
                 torch, pkg, attention, data, cfg_p, phase, n_hosts,
                 serial_rec, per_step)
         # JODIE has no attention
-        mh_want["multihost_jodie"] = dict.fromkeys(attention.KERNELS, 0)
+        mh_want["multihost_jodie"] = dict.fromkeys(
+            (*attention.KERNELS, *gather.KERNELS), 0)
         phase = "multihost_host_only"
         phase_multihost_host_only(torch, pkg, attention, data, mem_cfg_path)
         torch.cuda.empty_cache()
@@ -3946,17 +4087,22 @@ def main() -> int:
                      sharded_dp2_rank0=dp2_counts, **knob_counts)
         counts = {k: sum(p[k] for p in paths.values())
                   for k in attention.KERNELS}
+        # the paths that count the gather backward
+        counts["gather_bwd"] = sum(p.get("gather_bwd", 0)
+                                   for p in paths.values())
         # two attention layers: each kernel twice a step, twice a chunk
         layer2_want = dict(attention_fwd=0, attention_bwd=0,
                            attention_fwd_drop=2 * layer2_steps,
                            attention_bwd_drop=2 * layer2_steps,
-                           attention_fwd_infer=2 * layer2["embed_chunks"])
+                           attention_fwd_infer=2 * layer2["embed_chunks"],
+                           gather_bwd=2 * layer2_steps)
         # DyRep at att_dropout 0.1: the dropout pair once a step, the
         # inference forward once an embed chunk of its val pass
         dyrep_want = dict(attention_fwd=0, attention_bwd=0,
                           attention_fwd_drop=dyrep_steps,
                           attention_bwd_drop=dyrep_steps,
-                          attention_fwd_infer=dyrep["embed_chunks"])
+                          attention_fwd_infer=dyrep["embed_chunks"],
+                          gather_bwd=2 * dyrep_steps)
         emit(dict(phase="counters", **paths, layer2_expected=layer2_want,
                   dyrep_expected=dyrep_want, fit_expected=fit_want,
                   **{f"{k}_expected": v for k, v in transport_want.items()},
@@ -3964,8 +4110,10 @@ def main() -> int:
                   sharded_expected=sharded_serial,
                   sharded_dp2_rank0_expected=dp2_want,
                   **{f"{k}_expected": v for k, v in knob_want.items()},
+                  memory_gather_bwd_expected=2 * memory_steps,
+                  vector_gather_bwd_expected=2 * vector_steps,
                   launches=counts))
-        idle = [k for k, v in frozen_counts.items() if v == 0]
+        idle = [k for k in attention.KERNELS if frozen_counts[k] == 0]
         idle += [f"{k} (memory path)" for k in MEMORY_PATH_KERNELS
                  if memory_counts[k] == 0]
         idle += [f"{k} (layer-2 path)" for k in MEMORY_PATH_KERNELS
@@ -3993,7 +4141,10 @@ def main() -> int:
                 or fit_counts != fit_want or transport_counts != transport_want
                 or mh_counts != mh_want or sharded_counts != sharded_serial
                 or dp2_counts != dp2_want or knob_counts != knob_want
-                or any(vector_counts.values())
+                or memory_counts["gather_bwd"] != 2 * memory_steps
+                or frozen_counts["gather_bwd"]
+                or any(vector_counts[k] for k in attention.KERNELS)
+                or vector_counts["gather_bwd"] != 2 * vector_steps
                 or any(jodie_counts.values())):
             raise AssertionError(
                 f"layer-2 path launches {layer2_counts}, expected "
@@ -4004,7 +4155,9 @@ def main() -> int:
                 f"expected {mh_want}; sharded paths {sharded_counts}, "
                 f"{dp2_counts}, expected {sharded_serial}, {dp2_want}; "
                 f"the knobs' paths {knob_counts}, expected {knob_want}; "
-                f"vector path {vector_counts}; "
+                f"memory path {memory_counts} ({memory_steps} steps); "
+                f"frozen path {frozen_counts}; "
+                f"vector path {vector_counts} ({vector_steps} steps); "
                 f"JODIE path {jodie_counts}")
         phase = "profile"
         phase_profile(torch, pkg, data, cfg_path, "frozen")
@@ -4028,7 +4181,18 @@ def main() -> int:
              plain_ms=kres[name]["plain_ms"],
              bound_ms=kres[name]["bound_ms"],
              bound_by=kres[name]["bound_by"], library_ms=None)
-        for name in attention.KERNELS]})
+        for name in attention.KERNELS] + [
+        dict(name="gather_bwd", route="cuda", source=GATHER_SOURCE,
+             replaces=None, launches=counts["gather_bwd"],
+             max_worst_row_err=kres["gather_bwd"]["max_worst_row_err"],
+             ms=kres["gather_bwd"]["ms"],
+             op_ms=kres["gather_bwd"]["op_ms"],
+             aten_ms=kres["gather_bwd"]["aten_ms"],
+             plain_ms=kres["gather_bwd"]["plain_ms"],
+             bound_ms=kres["gather_bwd"]["bound_ms"],
+             bound_by="bytes",
+             pct_of_bound=kres["gather_bwd"]["pct_of_bound"],
+             library_ms=None)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

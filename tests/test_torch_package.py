@@ -1,7 +1,7 @@
 """Package rules of the port (tgb_tgn_dgl_tpu_torch): it imports neither
 JAX nor the JAX package, builds nothing at import, compiles only its own
-sources (csrc/) into its own _build/, and its CUDA source exports the
-entry points its wrappers call."""
+sources (csrc/) into its own _build/, and its CUDA sources export the
+entry points their wrappers call."""
 import ast
 import re
 import subprocess
@@ -49,6 +49,49 @@ def test_cuda_source_exports_every_wrapped_entry_point():
                             for t in attention._ARGTYPES[name]), name
 
 
+def test_gather_source_exports_its_entry_points():
+    """csrc/gather.cu exports the kernel ops/gather.py launches, with as
+    many pointers as its argtypes, and the workspace layout it reads."""
+    from tgb_tgn_dgl_tpu_torch.ops import gather
+    src = (PKG / "csrc" / "gather.cu").read_text()
+    exported = set(re.findall(r"^int (\w+)\(", src, flags=re.M))
+    assert exported == {*gather.KERNELS, "gather_bwd_chunk_slots",
+                        "gather_bwd_tile_chunks"}
+    n_ptr = src.split("int gather_bwd(")[1].split(")")[0].count("void*")
+    assert n_ptr == sum(t is gather._P for t in gather._ARGTYPES)
+
+
+def test_library_builds_stale_siblings_and_survives_their_failure(
+        tmp_path, monkeypatch):
+    """``_build.library(name)`` compiles the other stale .cu sources in the
+    same round; a sibling that fails to compile leaves ``name`` loaded,
+    and the sibling's own first call raises with the compiler's output.
+    A stand-in for nvcc compiles each source as C with g++."""
+    from tgb_tgn_dgl_tpu_torch.ops import _build
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("good", "other", "bad"):
+        (csrc / f"{name}.cu").write_text(
+            f"int {name}_entry(void) {{ return 7; }}\n")
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        '#!/bin/sh\nout=""; src=""\n'
+        'while [ $# -gt 0 ]; do case "$1" in -o) out="$2"; shift;; '
+        '*.cu) src="$1";; esac; shift; done\n'
+        'case "$src" in *bad.cu) echo "error: bad source" >&2; exit 1;; '
+        'esac\nexec g++ -shared -fPIC -x c -o "$out" "$src"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD", tmp_path / "_build")
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "_loaded", {})
+    assert _build.library("good").good_entry() == 7
+    assert _build.target("other").exists()
+    assert not _build.target("bad").exists()
+    with pytest.raises(RuntimeError, match="error: bad source"):
+        _build.library("bad")
+
+
 def test_import_builds_nothing():
     code = ("import tgb_tgn_dgl_tpu_torch.engine.train, chip_smoke, "
             "tgb_tgn_dgl_tpu_torch.run_tgn, "
@@ -71,7 +114,7 @@ def test_import_builds_nothing():
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "0"
     from tgb_tgn_dgl_tpu_torch.ops import _build
-    assert _build.sources() == ["attention"]
+    assert _build.sources() == ["attention", "gather"]
     assert _build.target("attention").parent == PKG / "_build"
 
 

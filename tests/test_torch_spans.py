@@ -73,8 +73,9 @@ def trained():
 
 def test_train_epoch_spans(trained):
     tr = trained.last_epoch_trace
-    assert set(tr) == OLD_KEYS | {"batches", "spans"}
+    assert set(tr) == OLD_KEYS | {"batches", "gather_launches", "spans"}
     assert tr["batches"] == 7
+    assert tr["gather_launches"] == 0      # the CPU takes aten's backward
     _check_tree(tr, TRAIN_PARTS)
     for name in ("step",) + TRAIN_PARTS:
         assert tr["spans"][name]["n"] == tr["batches"], name

@@ -144,6 +144,7 @@ from ..models.tgnn import TGNNConfig, bce_loss
 from ..models.variants import (EagerMemoryConfig, dyrep_messages,
                                eager_apply_mail, eager_commit,
                                init_eager_memory, init_eager_memory_state)
+from ..ops import gather
 from ..ops.lean_wire import (LeanWire, advance_stream, clone_stream_state,
                              expand_lean, init_stream_device_state,
                              reset_stream_cache)
@@ -636,7 +637,10 @@ class Engine:
         ``s``, ``self_s`` and ``n`` (``SectionTimers.summary``): ``feed``
         (``pack_s``) with ``feed.fetch`` and ``feed.copy``, and ``step``
         (``disp_s``) with ``step.expand``, the train step's parts
-        (``_train_step``) and ``step.advance``."""
+        (``_train_step``) and ``step.advance``; and ``gather_launches``,
+        the launches of the memory-row gather's backward kernel
+        (``ops/gather.py``: one a gather, two a memory step on CUDA, none
+        on the CPU)."""
         self.packer.reset_cache()
         if self.device_cache:
             self.sstate = reset_stream_cache(self.sstate)
@@ -646,6 +650,7 @@ class Engine:
         acc = torch.zeros(4, dtype=torch.float32, device=self.device)
         total = nb = 0
         timers = SectionTimers()
+        launches0 = gather.launches()
         t0 = time.perf_counter()
         with timers.install():
             wires = self._packed(self._train_jobs(),
@@ -672,7 +677,9 @@ class Engine:
                 total += hi - lo
         vals = acc.cpu().numpy()                    # ONE fetch
         self.last_epoch_trace = {"total_s": time.perf_counter() - t0,
-                                 **_trace_keys(timers), "batches": nb}
+                                 **_trace_keys(timers), "batches": nb,
+                                 "gather_launches":
+                                     gather.launches() - launches0}
         n = max(float(vals[3]), 1.0)
         return {"loss": float(vals[0]), "ap": float(vals[1] / n),
                 "auc": float(vals[2] / n), "events": total}

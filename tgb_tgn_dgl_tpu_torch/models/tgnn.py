@@ -66,6 +66,7 @@ from torch.nn.functional import embedding
 
 from ..data.packer import KIND_INVALID, KIND_SELF
 from ..ops.attention import attention_core
+from ..ops.gather import gather_rows
 from ..ops.segment import masked_softmax
 from ..ops.time_encode import TimeEncode
 from .init import (dropout, dropout_mask, linear_default, linear_xavier,
@@ -297,12 +298,13 @@ def tgnn_embed(model: TGNN, cfg: TGNNConfig, memory: Optional[torch.Tensor],
     if memory is not None:
         memory = memory.to(cdt)
     if local:
-        # embedding() is memory[idx]; its backward reduces the duplicate
-        # indices in sorted segments, where indexing's backward adds them
-        # one after another: the padded columns all point at the trash
-        # row, about 10^5 duplicates a train batch
-        nf_src = embedding(pack.nbr_loc.long(), memory)   # (R, Kp, D)
-        nf_dst = embedding(pack.root_loc.long(), memory)  # (R, D)
+        # gather_rows() is embedding(idx, memory); on CUDA its backward
+        # sorts the slots by row and sums them in fixed chunks of slots,
+        # each chunk a warp, so the trash row that every padded column
+        # points at (57-79% of a train batch's slots) is summed by many
+        # warps, and in the same order every run
+        nf_src = gather_rows(pack.nbr_loc, memory)        # (R, Kp, D)
+        nf_dst = gather_rows(pack.root_loc, memory)       # (R, D)
     elif cfg.const_ones_memory:
         nf_src = torch.ones((R, Kp, D), dtype=cdt, device=ef.device)
         nf_dst = torch.ones((R, D), dtype=cdt, device=ef.device)

@@ -3,11 +3,12 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled with
 ``nvcc`` for ``sm_90a`` into ``_build/lib<name>-<hash>.so``, where the
 hash covers the source and the flags, and loaded with ``ctypes``.  The
-build runs at the first CUDA call that needs a library (or when
-``build()`` is called, as chip_smoke.py does), never at import: a machine
-without ``nvcc`` imports and tests the package on the CPU.  Several
-sources build in parallel, one ``nvcc`` process each (``compile_all``,
-which the A/B and sweep scripts use for other versions of a source).
+build runs at the first CUDA call that needs a library, which builds the
+other stale sources beside it (or when ``build()`` is called, as
+chip_smoke.py does), never at import: a machine without ``nvcc`` imports
+and tests the package on the CPU.  Several sources build in parallel, one
+``nvcc`` process each (``compile_all``, which the A/B and sweep scripts use
+for other versions of a source).
 
 Each ``csrc/<name>.cpp`` is host code (the stream packer, the multi-host
 exchange's node-range owners): ``g++`` with
@@ -65,11 +66,13 @@ def target(name: str) -> Path:
     return BUILD / f"lib{name}-{digest[:16]}.so"
 
 
-def compile_all(jobs: Dict[str, tuple]) -> Dict[str, dict]:
+def compile_all(jobs: Dict[str, tuple],
+                must: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     """Compile each ``name: (source, library)`` with NVCC_FLAGS, all ``nvcc``
     processes started together.  Returns, per name, the seconds it took and
     the compiler's log (``ptxas`` registers and spills).  Raises with the
-    compiler's output on failure."""
+    compiler's output when a job of ``must`` (default: every job) fails;
+    any other failed job is left unbuilt, its report marked ``failed``."""
     BUILD.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, (src, out) in jobs.items():
@@ -85,7 +88,10 @@ def compile_all(jobs: Dict[str, tuple]) -> Dict[str, dict]:
         log, _ = proc.communicate()
         report[name] = {"seconds": time.perf_counter() - t0, "log": log}
         if proc.returncode != 0:
-            failed.append(f"{name} (exit {proc.returncode}):\n{log}")
+            tmp.unlink(missing_ok=True)
+            report[name]["failed"] = True
+            if must is None or name in must:
+                failed.append(f"{name} (exit {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)
     if failed:
@@ -105,10 +111,15 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu``.  The first call that finds
+    it unbuilt also builds the other stale sources in the same parallel
+    ``nvcc`` round, so that one process pays for one round; a sibling that
+    fails to compile does not stop ``name`` (its own first call raises)."""
     lib = _loaded.get(name)
     if lib is None:
-        build([name])
+        if not target(name).exists():
+            compile_all({n: (CSRC / f"{n}.cu", target(n)) for n in sources()
+                         if not target(n).exists()}, must=[name])
         lib = _loaded[name] = ctypes.CDLL(str(target(name)))
     return lib
 
