@@ -4,21 +4,24 @@ and the comparison with the plain reference.
 The set-up builds one ``Engine`` of the port (``tgb_tgn_dgl_tpu_torch``)
 on the stream the traffic file describes, made from the seed, with the
 weights made from the seed on the device; it runs ``warm_buckets`` as
-``Engine.fit`` does, and warms the cell's own entry on its own shapes:
+``Engine.fit`` does, and warms the cell's own entry on its own shapes.
+Whatever depends on the architecture goes through the plain reference
+that the cell's configuration names (``spec.reference``; its interface
+in ``reference/__init__.py``), held as ``Run.ref``:
 
 * ``train_epoch`` cells: one epoch, whose first three steps the
   correctness check reads (the optimizer's first moments after step 1,
-  the parameters after step 3, each step's loss, and the root slots of
-  the grid each step was handed), and the traffic's further warm-up
-  epochs;
+  the parameters after step 3, each step's loss, and the reference's
+  ``step_record`` of the pack each step was handed), and the traffic's
+  further warm-up epochs;
 * ``evaluate`` cells: the traffic's train epochs; then the start of every
   val pass, made by the reference: its stream state after those epochs
   (which the program's packer has to hold, and the check compares), the
-  weights made from the seed, and the memory the reference makes over
-  those epochs with them (``reference.tgn.train_epoch_state``), loaded
-  into the engine and taken as its snapshot; and one val pass from it.
-  The reference's part is set-up that the program does not do, and is
-  left out of ``setup_s``.
+  weights made from the seed, and the model state the reference makes
+  over those epochs with them (``train_epoch_state``), loaded into the
+  engine and taken as its snapshot; and one val pass from it.  The
+  reference's part is set-up that the program does not do, and is left
+  out of ``setup_s``.
 
 The window then runs whole calls of the same entry on the same engine
 (``evaluate``: each after ``restore_stream`` of the snapshot, inside the
@@ -36,8 +39,8 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 
-from . import check, spec, trace
-from .reference import tgn as ref
+from . import check, spans, spec, trace
+from .flops import count_params
 from .stream import synthetic
 
 # top-level module names a run may not load: JAX and the JAX package
@@ -74,18 +77,6 @@ class Clock:
                 - sum(self.uncounted.values()))
 
 
-def model_of(config: dict, msg_dim: int) -> ref.Model:
-    """The reference's sizes from a configuration's TGL sections."""
-    tgl = config["tgl"]
-    s, mem, g, t = (tgl[k][0] for k in ("sampling", "memory", "gnn",
-                                        "train"))
-    return ref.Model(D=g["dim_out"], H=g["att_head"], F=msg_dim,
-                     K=s["neighbor"][0], P=t.get("max_intra_block", 32),
-                     memory=not t.get("frozen_memory", True),
-                     drop=t["dropout"], att_drop=t["att_dropout"],
-                     lr=t["lr"], Dt=mem.get("dim_time", g["dim_time"]))
-
-
 def make_stream(traffic: dict, seed: int, preset: Optional[str] = None):
     st = traffic["stream"]
     return synthetic(preset or st["preset"], seed=seed,
@@ -117,19 +108,19 @@ class FirstSteps:
     """Wraps ``engine._train_step`` for the first ``n`` steps of the next
     epoch and records what the check compares: each step's loss, Adam's
     first moments after step 1 (the first gradient, exp_avg / (1 - β1)),
-    and the parameters after step ``n``; and the root slots of the grid
-    each step is handed (its device pack's ``root_loc``), over which its
-    dropout is drawn; then takes itself off."""
+    and the parameters after step ``n``; and ``record(pack)`` of the
+    device pack each step is handed (the reference's ``step_record``);
+    then takes itself off."""
 
-    def __init__(self, engine, n: int = 3):
-        self.engine, self.n = engine, n
+    def __init__(self, engine, record: Callable, n: int = 3):
+        self.engine, self.record, self.n = engine, record, n
         self.orig = engine._train_step
         self.losses, self.g1, self.params = [], None, None
-        self.grid_rows = []
+        self.records = []
         engine._train_step = self
 
     def __call__(self, pack, acc):
-        self.grid_rows.append(int(pack.root_loc.shape[0]))
+        self.records.append(self.record(pack))
         out = self.orig(pack, acc)
         eng = self.engine
         self.losses.append(out[0].detach().clone())
@@ -149,7 +140,7 @@ class FirstSteps:
         if self.params is None:
             raise RuntimeError(f"the epoch ran fewer than {self.n} steps")
         return {"losses": [float(x) for x in self.losses],
-                "grid_rows": list(self.grid_rows),
+                "records": list(self.records),
                 "g1": {k: v.cpu() for k, v in self.g1.items()},
                 "params": {k: v.cpu() for k, v in self.params.items()}}
 
@@ -218,6 +209,7 @@ class Run:
         import torch
         from tgb_tgn_dgl_tpu_torch.engine.train import Engine
         from tgb_tgn_dgl_tpu_torch.utils.config import parse_config_dict
+        ref = self.ref = spec.reference(cell.config, cell.traffic["entry"])
         clock.mark("import")
         self.torch, self.cell, self.seed = torch, cell, seed
         dev = self.dev = torch.device(device)
@@ -233,7 +225,7 @@ class Run:
         tr = self.traffic = cell.traffic
         self.entry = tr["entry"]
         self.stream = make_stream(tr, seed, preset)
-        self.model = model_of(cell.config, self.stream.msg.shape[1])
+        self.model = ref.model_of(cell.config, self.stream.msg.shape[1])
         clock.mark("stream")
         cfg = parse_config_dict(spec.framework_sections(cell.config, tr,
                                                         seed))
@@ -251,7 +243,7 @@ class Run:
         if self.entry == "train_epoch":
             # the dropout draws start from the seed the reference's do
             eng.generator.manual_seed(ref.mask_seed(seed))
-            spy = FirstSteps(eng)
+            spy = FirstSteps(eng, ref.step_record)
             for _ in range(tr["warmup_calls"]):
                 eng.train_epoch()
             self.readings = spy.readings()
@@ -269,8 +261,8 @@ class Run:
             eng.model.load_state_dict(self.weights)
             self.snap = eng.snapshot_stream()
             if eng.use_memory:
-                self.snap["mem_state"] = port_state(self.start_mem,
-                                                    self.snap["mem_state"])
+                self.snap["mem_state"] = ref.program_state(
+                    self.start_mem, self.snap["mem_state"])
             self.readings["packer_before"] = tuple(
                 np.copy(a) if isinstance(a, np.ndarray) else a
                 for a in self.snap["packer"])
@@ -347,15 +339,15 @@ class Run:
                   still: bool = False, taus: tuple = (check.TAU,)):
         """The plain reference over what the window's entry computed; in
         ``tf32`` its matmuls in TF32 (the control); ``half_batch`` and
-        ``still`` plant the faults of ``ref.train_steps``; ``taus`` the
-        score slacks of the val pass's bounds."""
-        torch, tr = self.torch, self.traffic
+        ``still`` plant the faults of the reference's ``train_steps``;
+        ``taus`` the score slacks of the val pass's bounds."""
+        torch, tr, ref = self.torch, self.traffic, self.ref
         torch.backends.cuda.matmul.allow_tf32 = tf32
         try:
             if self.entry == "train_epoch":
                 return ref.train_steps(self.stream, self.model, self.weights,
                                        self.seed, tr["batch_size"],
-                                       self.readings["grid_rows"], self.dev,
+                                       self.readings["records"], self.dev,
                                        half_batch=half_batch, still=still)
             mem = (self.start_mem.clone() if self.start_mem is not None
                    else None)
@@ -383,7 +375,7 @@ class Run:
         opt, pes = r.counts[:, 0], r.counts[:, 1]
         blk = np.arange(len(opt)) // self.traffic["batch_size"]
         mem = (None if r.mem is None else
-               port_state(r.mem, self.readings["mem_after"]))
+               self.ref.program_state(r.mem, self.readings["mem_after"]))
         return {"mrrs": [r.mrr], "counts": [(opt, pes, blk)],
                 "packer_before": self.readings["packer_before"],
                 "packer_after": (st.nbr, st.eid, st.t, st.clock),
@@ -423,6 +415,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool,
             + ", attention kernels in the trace " + json.dumps(
                 {k[:40]: v for k, v in prof["kernel_counts"].items()
                  if "attention" in k}))
+        log("profiled call: spans " + json.dumps(ctx["span_metrics"]))
         for m in cell.per_layer:
             value = spec.metric_reader(m["name"])(ctx)
             if value is not None:
@@ -458,48 +451,33 @@ def result_line(res: dict, traced: bool, device: dict) -> dict:
     return line
 
 
-def port_state(mem: ref.MemoryState, like):
-    """The reference's memory laid out as the port's MemoryState ``like``
-    (one mail slot; ``mail_src`` the node itself where a mail is; the
-    rows past the reference's, the port's trash row, zero), on ``like``'s
-    device and in its dtypes."""
-    import torch
-    n = mem.mem.shape[0]
-    node = torch.arange(n, device=mem.mem.device)
-    values = {"mem": mem.mem, "last_update": mem.last_update,
-              "mail_src": torch.where(mem.mail_valid, node, 0),
-              "mail_dst": mem.mail_dst, "mail_t": mem.mail_t,
-              "mail_eid": mem.mail_eid, "mail_valid": mem.mail_valid}
-    out = {}
-    for name, field in zip(like._fields, like):
-        t = torch.zeros_like(field)
-        t[:n] = values[name].reshape(t[:n].shape).to(t.device, t.dtype)
-        out[name] = t
-    return type(like)(**out)
-
-
 def _layer_context(run: Run, attention) -> dict:
     """What the per-layer readers read: the window's host spans and call
-    counts, the step shapes, and one more call under the profiler."""
-    from tgb_tgn_dgl_tpu_torch.utils.flops import count_params
-    eng, model, w, tr = run.eng, run.model, run.w, run.traffic
+    counts, the model's sizes (the reference's ``layer_context``), the
+    program's memory settings and, on train cells, its padded step shapes
+    and parameter count; and one more call under the profiler, with the
+    reading of the program's spans in its trace (``span_metrics``:
+    ``spans.layer_metrics``, empty where the trace has no device
+    events)."""
+    eng, w, tr = run.eng, run.w, run.traffic
     cfg = eng.config
     ctx = {"phase": "train" if run.entry == "train_epoch" else "val",
            "window_s": w["window_s"], "spans": dict(w["spans"]),
            "calls": w["calls"], "batches": w["batches"],
            "chunks": w["chunks"], "B": tr["batch_size"],
-           "Kp": model.K + 1 + model.P, "F": model.F, "D": model.D,
-           "H": model.H, "memory": model.memory,
+           **run.ref.layer_context(run.model),
            "S": cfg.memory.mailbox_size, "updater": cfg.memory.memory_update}
     if run.entry == "train_epoch":
         b = eng.packer.bucket_state()[(1, False)]
-        ctx.update(R=b["R"], U=b["Ub"] if model.memory else 0,
+        ctx.update(R=b["R"], U=b["Ub"] if eng.use_memory else 0,
                    n_params=count_params(eng.model))
     else:
         ctx.update(chunk_shapes=run.shapes,
                    M=int(eng.data.val_ns.shape[1]))
     before = dict(attention.launch_counts)
-    ctx["profile"] = trace.profile(run.torch, run.call)
-    ctx["profile"]["launches"] = {k: attention.launch_counts[k] - before[k]
-                                  for k in before}
+    events = trace.profile(run.torch, run.call)
+    prof = ctx["profile"] = trace.read_events(events)
+    prof["launches"] = {k: attention.launch_counts[k] - before[k]
+                        for k in before}
+    ctx["span_metrics"] = spans.layer_metrics(spans.read_spans(events), prof)
     return ctx

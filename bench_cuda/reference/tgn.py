@@ -65,6 +65,25 @@ class Model(NamedTuple):
     Dt: int = 100          # memory.dim_time
 
 
+def model_of(config: dict, msg_dim: int) -> Model:
+    """The reference's sizes from a configuration's TGL sections."""
+    tgl = config["tgl"]
+    s, mem, g, t = (tgl[k][0] for k in ("sampling", "memory", "gnn",
+                                        "train"))
+    return Model(D=g["dim_out"], H=g["att_head"], F=msg_dim,
+                 K=s["neighbor"][0], P=t.get("max_intra_block", 32),
+                 memory=not t.get("frozen_memory", True),
+                 drop=t["dropout"], att_drop=t["att_dropout"],
+                 lr=t["lr"], Dt=mem.get("dim_time", g["dim_time"]))
+
+
+def layer_context(m: Model) -> dict:
+    """TGN's sizes in the per-layer metrics' context: the padded grid's
+    columns, the widths and the memory's form."""
+    return {"Kp": m.K + 1 + m.P, "F": m.F, "D": m.D, "H": m.H,
+            "memory": m.memory}
+
+
 def leaf_shapes(m: Model) -> Dict[str, tuple]:
     """Every learnable leaf, by the name both sides give it."""
     D, H, F_ = m.D, m.H, m.F
@@ -127,6 +146,12 @@ def make_weights(m: Model, seed: int, device) -> Dict[str, torch.Tensor]:
 def mask_seed(seed: int) -> int:
     """The seed of the dropout draws of a run of ``seed``."""
     return seed + 1
+
+
+def step_record(pack) -> int:
+    """The root slots of the grid a train step is handed (its device
+    pack's ``root_loc``), over which its dropout is drawn."""
+    return int(pack.root_loc.shape[0])
 
 
 # ------------------------------------------------------------- the model
@@ -294,15 +319,15 @@ class TrainResult(NamedTuple):
 
 
 def train_steps(stream, m: Model, weights: Dict[str, torch.Tensor],
-                seed: int, batch_size: int, grid_rows: List[int], device,
+                seed: int, batch_size: int, records: List[int], device,
                 half_batch: bool = False, still: bool = False
                 ) -> TrainResult:
-    """The first ``len(grid_rows)`` steps of a train epoch from
+    """The first ``len(records)`` steps of a train epoch from
     ``weights``, a fresh stream state and fresh Adam moments, step i's
-    dropout drawn over ``grid_rows[i]`` root slots.  Two planted faults:
-    ``half_batch``, the loss is the mean over the first half of each
-    batch's events only; ``still``, a step leaves the parameters and the
-    memory as they were."""
+    dropout drawn over ``records[i]`` root slots (``step_record``).  Two
+    planted faults: ``half_batch``, the loss is the mean over the first
+    half of each batch's events only; ``still``, a step leaves the
+    parameters and the memory as they were."""
     rows = np.nonzero(stream.train_mask)[0]
     src, dst, t = (stream.src.astype(np.int64), stream.dst.astype(np.int64),
                    stream.t)
@@ -320,7 +345,7 @@ def train_steps(stream, m: Model, weights: Dict[str, torch.Tensor],
     state = StreamState(stream.num_nodes, m.K)
     mem = MemoryState(stream.num_nodes, m.D, device) if m.memory else None
     losses, grads = [], []
-    for step, R in enumerate(grid_rows):
+    for step, R in enumerate(records):
         lo, hi = batches[step]
         r = rows[lo:hi]
         g = state.pack(src[r], dst[r], t[r], r, blocks[lo:hi],
@@ -482,3 +507,22 @@ def val_pass(stream, m: Model, params, state: StreamState,
             commit(mem, nodes, rows_mem, lu, g, device)
     return ValResult(float(np.mean(means)), np.concatenate(counts),
                      tuple(taus), np.concatenate(bounds), mem, state)
+
+
+def program_state(mem: MemoryState, like):
+    """The reference's memory laid out as the port's MemoryState ``like``
+    (one mail slot; ``mail_src`` the node itself where a mail is; the
+    rows past the reference's, the port's trash row, zero), on ``like``'s
+    device and in its dtypes."""
+    n = mem.mem.shape[0]
+    node = torch.arange(n, device=mem.mem.device)
+    values = {"mem": mem.mem, "last_update": mem.last_update,
+              "mail_src": torch.where(mem.mail_valid, node, 0),
+              "mail_dst": mem.mail_dst, "mail_t": mem.mail_t,
+              "mail_eid": mem.mail_eid, "mail_valid": mem.mail_valid}
+    out = {}
+    for name, field in zip(like._fields, like):
+        t = torch.zeros_like(field)
+        t[:n] = values[name].reshape(t[:n].shape).to(t.device, t.dtype)
+        out[name] = t
+    return type(like)(**out)

@@ -35,7 +35,9 @@ region of the trace while torch.profiler records: ``feed`` (with
 
 It returns None for a trace with no span on the main thread or no
 correlation id on its device events.  ``layer_metrics`` turns a reading
-into per-step and per-window numbers.
+into per-step and per-window numbers; the harness reads the events of
+its profiled call with it and hands ``layer_metrics`` of the reading to
+every per-layer metric's reader as ``ctx["span_metrics"]``.
 
     python3 bench_cuda/spans.py --workload <name> --seed <n> \\
         [--seconds <s>] [--calls <k>]
@@ -244,20 +246,8 @@ def layer_metrics(reading: Optional[dict], base: dict) -> Dict[str, float]:
 def profiled_call(run, torch) -> dict:
     """One call of ``run``'s entry under the profiler, read by
     ``trace.read_events`` and ``read_spans``."""
-    import json
-    import tempfile
-    from torch.profiler import ProfilerActivity, profile, record_function
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        with record_function(trace.WINDOW):
-            host = run.call()
-    with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
+    host = []
+    events = trace.profile(torch, lambda: host.append(run.call()))
     base = trace.read_events(events)
     reading = read_spans(events)
     out = {"window_s": base["window_s"], "busy_s": base["busy_s"],
@@ -269,7 +259,7 @@ def profiled_call(run, torch) -> dict:
         reading["span_kernels"] = {k: trace.top(v, 3, 64) for k, v in
                                    reading["span_kernels"].items()}
         out.update(reading)
-    out["host_spans"] = host.get("spans")
+    out["host_spans"] = host[0].get("spans")
     return out
 
 

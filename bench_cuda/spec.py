@@ -2,12 +2,18 @@
 the checkout, and under ``bench_cuda/`` one file per configuration
 (``configs/<name>.json``), traffic mix (``traffic/<name>.json``), cell's
 correctness limits (``limits/<workload>.json``) and per-layer metric
-(``metrics/<name>.py``).  A later cell, configuration or metric is added
-by adding such files and entries; no file here names one."""
+(``metrics/<name>.py``).  A configuration's file names its plain
+reference (``"reference": "bench_cuda/reference/<name>.py"``, the
+interface in ``reference/__init__.py``), through which the harness does
+everything that depends on the architecture.  A later cell, metric or
+configuration, of another architecture too, is added by adding such
+files and entries; no file here names one."""
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
+import re
 from pathlib import Path
 from typing import Dict, List, NamedTuple
 
@@ -63,6 +69,35 @@ def metric_reader(name: str, here: Path = HERE):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+def reference(config: dict, entry: str):
+    """The plain reference module that ``config`` names, for a cell whose
+    traffic runs ``entry``.  Refused, with the configuration and its key
+    named, where the key is missing, is not ``bench_cuda/reference/<name>.py``,
+    or names a module that lacks a function of the interface (its
+    ``COMMON`` and its ``BY_ENTRY[entry]``)."""
+    key = config.get("reference")
+    where = f"configuration {config.get('name')!r}: reference {key!r}"
+    found = (re.fullmatch(rf"{HERE.name}/reference/([A-Za-z_][A-Za-z0-9_]*)"
+                          r"\.py", key) if isinstance(key, str) else None)
+    if found is None:
+        raise ValueError(f"{where}: a configuration names its plain reference "
+                         f"as {HERE.name}/reference/<name>.py")
+    package = importlib.import_module(f"{HERE.name}.reference")
+    name = f"{package.__name__}.{found[1]}"
+    try:
+        module = importlib.import_module(name)
+    except ModuleNotFoundError as e:
+        if e.name != name:
+            raise
+        raise ValueError(f"{where}: no module {name}") from None
+    needs = package.COMMON + package.BY_ENTRY.get(entry, ())
+    missing = [f for f in needs if not callable(getattr(module, f, None))]
+    if missing:
+        raise ValueError(f"{where} lacks {', '.join(missing)} of the "
+                         f"interface in {HERE.name}/reference/__init__.py")
+    return module
 
 
 def framework_sections(config: dict, traffic: dict, seed: int) -> Dict:

@@ -1,9 +1,10 @@
 """The spans' reading of a device trace (``bench_cuda/spans.py``) on a
 hand-built chrome trace: kernels put down through their launches on the
 main thread and on a second (autograd) thread, idle gaps inside ``step``,
-inside ``feed`` and outside both, and the trace's existing reading
+inside ``feed`` and outside both, the trace's existing reading
 (``trace.read_events``) and per-layer metrics unchanged by the span
-events."""
+events, and the readers of the per-layer metrics over the spans'
+reading."""
 import copy
 
 import pytest
@@ -134,23 +135,62 @@ def test_idle_gaps_inside_step_inside_feed_and_outside():
 
 
 def test_existing_readings_unchanged_by_span_events():
-    with_spans, without = (trace.read_events(_trace(s)) for s in (True,
+    events = {s: _trace(s) for s in (True, False)}
+    with_spans, without = (trace.read_events(events[s]) for s in (True,
                                                                   False))
     assert with_spans == without
     cell = small_cell("tgn_memory.wiki.train_b8000")
     values = []
-    for prof in (with_spans, without):
+    for s, prof in ((True, with_spans), (False, without)):
         ctx = {"phase": "train", "window_s": 2.0, "calls": 2, "batches": 28,
                "chunks": 0, "B": 8000, "R": 24576, "Kp": 43, "F": 172,
                "D": 100, "H": 8, "memory": True, "S": 1, "updater": "gru",
                "U": 20000, "n_params": 300000,
                "spans": {"fetch_s": 0.2, "copy_s": 0.1, "disp_s": 1.2},
                "profile": dict(prof, launches={"attention_fwd": 1,
-                                               "attention_bwd": 1})}
+                                               "attention_bwd": 1}),
+               "span_metrics": spans.layer_metrics(
+                   spans.read_spans(events[s]), prof)}
         values.append({m["name"]: spec.metric_reader(m["name"])(ctx)
                        for m in cell.per_layer})
-    assert len(values[0]) == 6 and None not in values[0].values()
-    assert values[0] == values[1]
+    # the readers of the spans' reading read it only where the trace has
+    # spans; every other reader reads the same either way
+    by_span = {k for k in values[0] if k.split(".")[0] in SPAN_METRICS}
+    old = {k: v for k, v in values[0].items() if k not in by_span}
+    assert len(old) == 6 and None not in old.values()
+    assert old == {k: values[1][k] for k in old}
+    assert len(by_span) == 4
+    assert all(values[0][k] is not None and values[1][k] is None
+               for k in by_span)
+
+
+# each span metric's reader and its reading of ``_trace()`` (and of it
+# with no sequence numbers, where the device time has no owner)
+SPAN_METRICS = {"memory_device_ms": (75e-3, None),
+                "launches_per_step": (6, 6),
+                "idle_in_step_pct": (24.3, 24.3),
+                "idle_in_feed_pct": (12.3, 12.3)}
+
+
+@pytest.mark.parametrize("name", sorted(SPAN_METRICS))
+def test_span_metric_readers(name):
+    read = spec.metric_reader(name + ".train")
+    ev = _trace()
+    seqless = copy.deepcopy(ev)
+    for e in seqless:
+        e["args"].pop("Sequence number", None)
+    for events, want in zip((ev, seqless), SPAN_METRICS[name]):
+        base = trace.read_events(events)
+        ctx = {"phase": "train", "span_metrics": spans.layer_metrics(
+            spans.read_spans(events), base)}
+        got = read(ctx)
+        assert got == (None if want is None else pytest.approx(want))
+        # another phase, or a trace with no device events: absent, not 0
+        assert read(dict(ctx, phase="val")) is None
+    no_device = [e for e in ev if e["cat"] not in trace.DEVICE_CATS]
+    base = trace.read_events(no_device)
+    assert read({"phase": "train", "span_metrics": spans.layer_metrics(
+        spans.read_spans(no_device), base)}) is None
 
 
 @pytest.mark.parametrize("drop", ["correlation", "spans", "sequence"])

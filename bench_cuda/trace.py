@@ -1,5 +1,6 @@
 """The traced sub-window: ``torch.profiler`` over one call of the cell's
-entry (one train epoch, one val pass), read from its chrome trace.
+entry (one train epoch, one val pass); ``profile`` hands back its chrome
+trace's events, and ``read_events`` reads them:
 
 * ``window_s``: the length of the ``bench.window`` annotation around the
   call (the call ends on its metrics fetch, so the device is done);
@@ -9,6 +10,9 @@ entry (one train epoch, one val pass), read from its chrome trace.
   launches of each in the trace;
 * ``idle_gaps``: each stretch inside the window with nothing on the
   device, by the innermost host op or runtime call running at its start.
+
+The program's spans in the same events are ``spans.read_spans``'s to
+read.
 """
 from __future__ import annotations
 
@@ -24,8 +28,9 @@ HOST_CATS = ("cpu_op", "cuda_runtime", "cuda_driver")
 WINDOW = "bench.window"
 
 
-def profile(torch, fn: Callable[[], object]) -> dict:
-    """Run ``fn`` once under the profiler; return the reading of it."""
+def profile(torch, fn: Callable[[], object]) -> List[dict]:
+    """Run ``fn`` once under the profiler, inside a ``bench.window``
+    annotation; return the chrome trace's events."""
     from torch.profiler import ProfilerActivity, profile as prof_ctx
     from torch.profiler import record_function
     acts = [ProfilerActivity.CPU]
@@ -38,8 +43,7 @@ def profile(torch, fn: Callable[[], object]) -> dict:
         path = os.path.join(d, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    return read_events(events)
+            return json.load(f)["traceEvents"]
 
 
 def _merge(intervals: List[Tuple[float, float]]):
