@@ -68,7 +68,8 @@ from tgb_tgn_dgl_tpu_torch.models.memory import (MemoryModelConfig,
                                                  init_memory)
 from tgb_tgn_dgl_tpu_torch.models.tgnn import TGNNConfig
 from tgb_tgn_dgl_tpu_torch.ops.time_encode import TimeEncode
-from tgb_tgn_dgl_tpu_torch.utils.config import (parse_config,
+from tgb_tgn_dgl_tpu_torch.utils.config import (PORT_ONLY_GNN_KEYS,
+                                                parse_config,
                                                 parse_config_dict)
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -390,7 +391,7 @@ def test_unknown_arch_raises():
     raw = dict(RAW, gnn=[dict(RAW["gnn"][0], arch="not_an_arch")])
     with pytest.raises(ValueError, match=r"supported: \('transformer"):
         Engine(_tiny(), parse_config_dict(raw), device="cpu")
-    assert ARCHS == ("transformer_attention", "identity", "dyrep")
+    assert ARCHS == ("transformer_attention", "identity", "dyrep", "dygformer")
 
 
 def test_memory_archs_refuse_a_disabled_memory():
@@ -410,7 +411,10 @@ def test_yml_parses_like_jax_and_builds(name):
     for sec in ("sampling", "memory", "gnn", "train"):
         mine = dataclasses.asdict(getattr(cfg, sec))
         theirs = dataclasses.asdict(getattr(jcfg, sec))
-        assert mine == {k: theirs[k] for k in mine}, sec
+        # DyGFormer's gnn keys are the port's alone
+        only = set(PORT_ONLY_GNN_KEYS) if sec == "gnn" else set()
+        assert set(mine) - set(theirs) == only, sec
+        assert mine == {k: theirs.get(k, mine[k]) for k in mine}, sec
     cfg.train.frozen_memory = True
     eng = Engine(_tiny(), cfg, device="cpu")
     assert eng.use_memory and eng.eager_memory == (name == "DyRep")

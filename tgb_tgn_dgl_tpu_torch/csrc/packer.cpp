@@ -1,6 +1,7 @@
 // Native stream-state emulator + batch packer (libpacker-<hash>.so, built
 // by ops/_build.py).  The port's copy of tgb_tgn_dgl_tpu/csrc/packer.cpp:
-// only the comments that name paths differ.
+// the comments that name paths differ, and the port adds the per-event
+// history mode (packer_pack_history) of DyGFormer.
 //
 // C++ twin of data/packer.py::StreamPacker — the host-side runtime that
 // resolves everything ragged about a batch (recency-cache neighborhoods,
@@ -392,6 +393,84 @@ void packer_insert(void* h, const int32_t* src, const int32_t* dst,
   auto* p = static_cast<Packer*>(h);
   wait_idle(p);
   insert_impl(p, src, dst, t, e_id, b);
+}
+
+// Per-event history mode (models/dygformer.py; numpy oracle
+// data/packer.py::StreamPacker.pack_history).  For each event in stream
+// order, each of its E = 2 + M ends (src, dst, then its M negatives)
+// reads its K latest cache entries, oldest first: (neighbor, edge row,
+// t_event - t_edge), padded with (-1, -1, 0) past its length; then the
+// event is inserted, so a later event of the batch sees it.  Rows
+// braw..B-1 are padding (valid 0, end 0, length 0).  insert == 0 puts
+// every cache row the batch wrote, and the event cursor, back as they
+// were (an eval column chunk that is not the batch's last).  Clocks and
+// mail pointers are not touched.  Outputs: end (B, E), valid (B,),
+// nid/eid/dt (B, E, K), len (B, E).
+void packer_pack_history(void* h, const int32_t* src, const int32_t* dst,
+                         const float* t, const int64_t* e_id,
+                         const int32_t* neg, int64_t braw, int64_t M,
+                         int64_t B, int32_t insert, int32_t* out_end,
+                         uint8_t* out_valid, int32_t* out_nid,
+                         int32_t* out_eid, float* out_dt, int32_t* out_len) {
+  auto* p = static_cast<Packer*>(h);
+  wait_idle(p);
+  const int32_t K = p->K;
+  const int64_t E = 2 + M;
+  std::vector<CacheEntry> saved;
+  const int64_t saved_cur = p->cur_e_id;
+  if (!insert) {
+    saved.resize(2 * braw * K);
+    for (int64_t i = 0; i < 2 * braw; ++i) {
+      const int64_t base = (int64_t)(i < braw ? src[i] : dst[i - braw]) * K;
+      for (int32_t j = 0; j < K; ++j)
+        saved[i * K + j] = {p->cache_eid[base + j], p->cache_nbr[base + j],
+                            p->cache_t[base + j]};
+    }
+  }
+  for (int64_t i = 0; i < B; ++i) {
+    const bool real = i < braw;
+    out_valid[i] = real ? 1 : 0;
+    for (int64_t e = 0; e < E; ++e) {
+      const int64_t o = i * E + e;
+      int32_t* nid = out_nid + o * K;
+      int32_t* eid = out_eid + o * K;
+      float* dt = out_dt + o * K;
+      int32_t n = 0;
+      int32_t w = 0;
+      if (real) {
+        w = e == 0 ? src[i] : e == 1 ? dst[i] : neg[i * M + e - 2];
+        const int64_t base = (int64_t)w * K;
+        // the row is eid-descending with its empty (-1) entries last
+        while (n < K && p->cache_eid[base + n] >= 0) ++n;
+        for (int32_t j = 0; j < n; ++j) {
+          const int64_t c = base + n - 1 - j;
+          nid[j] = p->cache_nbr[c];
+          eid[j] = (int32_t)p->cache_eid[c];
+          dt[j] = t[i] - p->cache_t[c];
+        }
+      }
+      for (int32_t j = n; j < K; ++j) {
+        nid[j] = -1;
+        eid[j] = -1;
+        dt[j] = 0.0f;
+      }
+      out_end[o] = w;
+      out_len[o] = n;
+    }
+    if (real) insert_impl(p, src + i, dst + i, t + i, e_id + i, 1);
+  }
+  if (!insert) {
+    for (int64_t i = 0; i < 2 * braw; ++i) {
+      const int64_t base = (int64_t)(i < braw ? src[i] : dst[i - braw]) * K;
+      for (int32_t j = 0; j < K; ++j) {
+        const CacheEntry& c = saved[i * K + j];
+        p->cache_eid[base + j] = c.eid;
+        p->cache_nbr[base + j] = c.nbr;
+        p->cache_t[base + j] = c.t;
+      }
+    }
+    p->cur_e_id = saved_cur;
+  }
 }
 
 // Phase 1: compute sizes.  out_sizes = {total_roots, p_exact}.

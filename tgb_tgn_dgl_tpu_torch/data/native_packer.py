@@ -15,10 +15,13 @@ host loops in C++, plus the wire emitters the Engine ships to the device
 in-edges at ``layers > 1``), ``pack_wire_dedup`` and the one-deep
 pack-ahead ``pack_wire_dedup_submit``/``pack_wire_dedup_fetch``, which
 runs the next batch on the library's own worker thread (one layer only,
-as in the JAX package), and ``clock_snapshot``, the (N,) clocks alone,
+as in the JAX package), ``pack_history`` (DyGFormer's per-event
+histories, ops/wire.py::HistoryWire), and ``clock_snapshot``, the (N,) clocks alone,
 which the train-lean wire (ops/wire.py::train_lean_dedup) reads before
-each batch.  Every output is bit-equal to the numpy packer
-(tests/test_torch_native_packer.py, tests/test_torch_multilayer.py).
+each batch.  Every other output is bit-equal to the numpy packer
+(tests/test_torch_native_packer.py, tests/test_torch_multilayer.py);
+``pack_history``, which the numpy packer lacks, is held to the plain
+reference's per-node rule (tests/test_torch_dygformer.py).
 
 The library is built with g++ at the first ``NativeStreamPacker``
 (ops/_build.py::host_library); a build that fails raises, and nothing
@@ -37,6 +40,19 @@ from ..ops import _build
 from .packer import Pack, PackerConfig, _bucket_p, _bucket_pow2
 
 _DECLARED = set()
+
+
+def history_buckets(packer, B: int, M: int, eval_mode: bool) -> None:
+    """A history pack's sizes in the packer's sticky table, as the grid
+    packs keep theirs, under (M, eval_mode): ``R`` the pair passes of a
+    step (B (1 + M): each event against its positive and its M
+    negatives) and ``Ub`` the ends whose histories it ships (B (2 + M)).
+    Both are fixed by the batch size, so the program reads neither; the
+    benchmark's harness reads ``bucket_state()[(1, False)]`` for every
+    train cell."""
+    key = (M, bool(eval_mode))
+    packer._sticky_bucket(key, "R", B * (1 + M))
+    packer._sticky_bucket(key, "Ub", B * (2 + M))
 
 
 def _lib() -> ctypes.CDLL:
@@ -110,6 +126,9 @@ def _lib() -> ctypes.CDLL:
         i32p, i32p, i32p, f32p, i32p,                # write plan
         c.c_int64, i32p, i32p, f32p, u8p,            # clock writes
         c.c_int64, f32p, f32p]                       # wipe
+    lib.packer_pack_history.argtypes = [
+        vp, i32p, i32p, f32p, i64p, i32p, c.c_int64, c.c_int64, c.c_int64,
+        c.c_int32, i32p, u8p, i32p, i32p, f32p, i32p]
     lib.packer_dedup_submit.argtypes = [
         vp, i32p, i32p, f32p, i64p, i32p, i32p,
         c.c_int64, c.c_int64, c.c_int32, c.c_int64,
@@ -551,6 +570,41 @@ class NativeStreamPacker(PackerHandle):
             ia_dt=ia_dt, mw_slot=mw_out,
         )
         return wire, P
+
+    def pack_history(self, src, dst, t, ev_idx, blocks, neg,
+                     eval_mode: bool = False, insert: bool = True,
+                     write_mail: bool = True):
+        """(HistoryWire, 0): DyGFormer's per-event histories from the
+        recency cache, on this thread.  Event by event in stream order,
+        each end (src, dst, then the negatives) reads its cache row, whose
+        K entries are its latest interactions earlier in the stream,
+        oldest first, with Δt = t_event - t_edge; then the event is
+        inserted.  ``insert=False`` leaves the cache and the event cursor
+        as they were.  ``blocks`` and ``write_mail`` are the pack's
+        arguments that this mode has no use for."""
+        from ..ops.wire import HistoryWire
+
+        Braw, B, K = len(src), self.cfg.batch_size, self.cfg.num_neighbors
+        neg2d = np.ascontiguousarray(
+            np.asarray(neg, np.int32).reshape(Braw, -1))
+        M = neg2d.shape[1]
+        E = 2 + M
+        history_buckets(self, B, M, eval_mode)
+        end = np.empty((B, E), np.int32)
+        valid = np.empty(B, np.uint8)
+        nid = np.empty((B, E, K), np.int32)
+        eid = np.empty((B, E, K), np.int32)
+        dt = np.empty((B, E, K), np.float32)
+        n_of = np.empty((B, E), np.int32)
+        self._lib.packer_pack_history(
+            self._h, np.ascontiguousarray(src, np.int32),
+            np.ascontiguousarray(dst, np.int32),
+            np.ascontiguousarray(t, np.float32),
+            np.ascontiguousarray(ev_idx, np.int64), neg2d, Braw, M, B,
+            int(insert), end, valid, nid, eid, dt, n_of)
+        return HistoryWire(ev_end=end, ev_valid=valid.astype(bool),
+                           hist_nid=nid, hist_eid=eid, hist_dt=dt,
+                           hist_len=n_of), 0
 
     # --------------------------------------------------- async pack-ahead
     # One job at most is outstanding: submit hands the batch to the C++

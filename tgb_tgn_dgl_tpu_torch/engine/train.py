@@ -11,7 +11,17 @@ its three model families (``gnn.arch``, models/factory.py):
     memory with the time-projection embedding and no graph attention;
   * DyRep (``gnn.arch: dyrep``, ``configs/DyRep.yml``): TGN's attention
     and the eager-mail memory (models/variants.py), whose stored messages
-    are computed at the event's batch, from its embeddings.
+    are computed at the event's batch, from its embeddings;
+  * DyGFormer (``gnn.arch: dygformer``, ``configs/DyGFormer.yml``,
+    models/dygformer.py): no memory; it scores pairs, each (src, dst) and
+    (src, negative) through a Transformer over the two ends' histories.
+    Every batch and eval chunk is packed on this thread by the packer's
+    per-event history mode (``pack_history``: each end's latest
+    interactions earlier in the stream, the batch's own earlier events
+    included) into a ``HistoryWire``, which the step reads as it crosses.
+    The slot-unique eval (its reason: ``gnn.arch dygformer scores
+    pairs``) and device-cache mode stay off; eval runs the column-chunk
+    protocol, the pairs of a chunk encoded ``EVAL_PAIRS`` at a time.
 
 JODIE and DyRep always run with their memory, whatever
 ``train.frozen_memory`` says.
@@ -137,7 +147,9 @@ from ..data.lean_packer import NativeLeanPacker
 from ..data.native_packer import NativeStreamPacker
 from ..data.packer import PackerConfig, StreamPacker
 from ..data.tcsr import build_tcsr
-from ..models.factory import arch_embed, arch_predict, init_arch
+from ..models.dygformer import (DyGFormerConfig, encode_pairs,
+                               pair_bce_loss, pair_tokens, split_logits)
+from ..models.factory import PAIR_ARCHS, arch_embed, arch_predict, init_arch
 from ..models.memory import (MemoryModelConfig, apply_mail, commit,
                              init_memory, init_memory_state)
 from ..models.tgnn import TGNNConfig, bce_loss
@@ -182,6 +194,12 @@ UNIFORM_GATE = "wire_dedup off or strategy!=recent"
 # engine/train.py:904,920)
 EVAL_UNIQUE_SLOTS = 49152
 EVAL_SCORE_COLUMNS = 256
+# DyGFormer's eval: pairs a column chunk encodes at a time (the
+# feed-forward activations of 8,192 pairs take ~3.4 GB at the published
+# widths)
+EVAL_PAIRS = 8192
+# its slot-unique gate's reason
+PAIR_GATE = "gnn.arch dygformer scores pairs"
 # the root-slot fields of a DedupWire: each embed chunk takes its rows
 SLOT_FIELDS = ("root_loc", "root_cr", "intra_lo", "intra_cnt", "intra_start",
                "root_blk")
@@ -215,11 +233,21 @@ class Engine:
         # engine/train.py:216-230); TGN takes the mailbox memory unless
         # the reference's frozen all-ones quirk is asked for
         self.arch = g.arch
+        self.pairs = self.arch in PAIR_ARCHS
         if self.arch in ("identity", "dyrep"):
             if not config.memory.enabled:
                 raise ValueError(f"gnn.arch {self.arch!r} needs the memory "
                                  f"(memory.type: 'node')")
             self.use_memory = True
+        elif self.pairs:
+            if config.memory.enabled and not tr.frozen_memory:
+                raise ValueError(f"gnn.arch {self.arch!r} has no memory "
+                                 f"(memory.type: 'none')")
+            if self.uniform:
+                raise ValueError(f"gnn.arch {self.arch!r} reads its "
+                                 f"histories from the recency cache "
+                                 f"(sampling.strategy: 'recent')")
+            self.use_memory = False
         else:
             self.use_memory = config.memory.enabled and not tr.frozen_memory
         # DyRep's messages hold embeddings: the eager-mail memory
@@ -237,8 +265,18 @@ class Engine:
             # (model_utils.py:270-271), so the embedding reads no table
             const_ones_memory=not self.use_memory,
         )
+        # DyGFormer's sizes (its token width is four channels, its
+        # histories the sequence less the end itself)
+        self.pair_cfg = None if not self.pairs else DyGFormerConfig(
+            node_dim=g.node_feat_dim, edge_dim=data.msg_dim,
+            time_dim=g.dim_time, channel=g.channel_embedding_dim,
+            patch=g.patch_size, seq_len=g.max_input_sequence_length,
+            layers=g.layer, heads=g.att_head,
+            drop=tr.dropout if drop is None else drop,
+            att_drop=tr.att_dropout if drop is None else drop)
         init_gen = torch.Generator().manual_seed(tr.seed)
-        self.model = init_arch(self.model_cfg, self.arch, init_gen)
+        self.model = init_arch(self.model_cfg, self.arch, init_gen,
+                               self.pair_cfg)
         self.mem_cfg = self.mem_state = None
         if self.use_memory:
             m = config.memory
@@ -269,13 +307,14 @@ class Engine:
             self.mem_state = self._fresh_memory_state()
         self.model = self.model.to(self.device)
         pk_cfg = PackerConfig(
-            num_neighbors=config.sampling.num_neighbors,
+            num_neighbors=(self.pair_cfg.history if self.pairs
+                           else config.sampling.num_neighbors),
             batch_size=tr.batch_size,
             max_intra_block=tr.max_intra_block,
             mailbox_size=config.memory.mailbox_size,
             strategy=config.sampling.strategy,
             seed=tr.seed,
-            layers=g.layer,
+            layers=1 if self.pairs else g.layer,
         )
         # device-cache mode: the gate of tgb_tgn_dgl_tpu
         # engine/train.py:181-185
@@ -292,11 +331,14 @@ class Engine:
         # the train-lean wire rides on the dedup wire: one layer, host
         # packer, 'recent'
         self.train_lean = (tr.wire_train_lean and not self.device_cache
-                           and g.layer == 1 and not self.uniform)
+                           and g.layer == 1 and not self.uniform
+                           and not self.pairs)
         # every batch and chunk packed on this thread when it is reached:
         # the worker's dedup wire carries no rslot (gnn.layer > 1) and no
-        # t-CSR draw ('uniform'), and the lean packer has no worker
-        self._sync_pack = g.layer > 1 or self.device_cache or self.uniform
+        # t-CSR draw ('uniform'), the lean packer has no worker, and a
+        # history pack is no job of the worker's
+        self._sync_pack = (g.layer > 1 or self.device_cache or self.uniform
+                           or self.pairs)
         self.sstate = None
         # the packer's library builds here at first use and a failed build
         # raises (data/native_packer.py, data/hostops.py)
@@ -323,6 +365,10 @@ class Engine:
         # times here instead of shipping Δt
         self.times = torch.from_numpy(
             np.ascontiguousarray(data.t, np.float32)).to(self.device)
+        # DyGFormer's node features: the stream has none, so DyGLib's zero
+        # rows of the node feature width, gathered like any feature
+        self.node_feats = None if not self.pairs else torch.zeros(
+            (data.num_nodes, self.pair_cfg.node_dim), device=self.device)
         self.neg_sampler = NegLinkSamplerDest(data.unique_dst(), seed=tr.seed)
         # every dropout mask of every step comes from this generator, in
         # the order models/init.py documents
@@ -367,6 +413,8 @@ class Engine:
         LeanWire, else a WirePack narrowed to a CompactWire where the wire
         allows it (JAX ``_maybe_compact``).  Returns (wire,
         intra_width)."""
+        if self.pairs:
+            return self.packer.pack_history(*args, **kw)
         wire, iw = self.packer.pack_wire(*args, **kw)
         if self.device_cache:
             return wire, iw
@@ -442,7 +490,9 @@ class Engine:
 
     def _expand(self, wire, intra_width):
         """The DevicePack of a device wire (in device-cache mode a train
-        batch's LeanWire)."""
+        batch's LeanWire); a HistoryWire is read as it is."""
+        if self.pairs:
+            return wire
         if self.device_cache:
             return self._expand_lean(wire, intra_width, eval_mode=False)
         return expand_any(wire, self.config.sampling.num_neighbors,
@@ -586,16 +636,22 @@ class Engine:
         engine/train.py:397-496); returns (loss, acc) with the running
         accumulator [Σ loss·n, Σ ap, Σ auc, batches] (:369-379).  Its
         parts are the spans ``step.memory.apply``, ``step.embed`` (with
-        the prediction and the loss), ``step.backward``,
-        ``step.memory.commit``, ``step.adam`` and ``step.stats``."""
+        the prediction and the loss; DyGFormer's parts in it are
+        ``step.embed.pairs`` and ``step.embed.encoder``),
+        ``step.backward``, ``step.memory.commit``, ``step.adam`` and
+        ``step.stats``."""
         self.optimizer.zero_grad(set_to_none=True)
-        mem_rows = lu_rows = None
+        mem_rows = lu_rows = embed = None
         if self.use_memory:
             mem_rows, lu_rows = self._apply_mail(pack)
         with span("step.embed"):
-            embed = self._embed(pack, mem_rows, lu_rows, train=True)
-            pos, neg = arch_predict(self.model, embed, pack)
-            loss = bce_loss(pos, neg, pack.ev_valid)
+            if self.pairs:
+                pos, neg = self._score_pairs(pack, train=True)
+                loss = pair_bce_loss(pos, neg, pack.ev_valid)
+            else:
+                embed = self._embed(pack, mem_rows, lu_rows, train=True)
+                pos, neg = arch_predict(self.model, embed, pack)
+                loss = bce_loss(pos, neg, pack.ev_valid)
         with span("step.backward"):
             loss.backward()
         if self.use_memory:
@@ -610,6 +666,32 @@ class Engine:
             acc = self._accumulate(acc, loss, pos.detach(), neg.detach(),
                                    pack.ev_valid)
         return loss, acc
+
+    def _score_pairs(self, wire, train: bool):
+        """DyGFormer's (pos (B,), neg (B, M)) logits of a device
+        HistoryWire: the token grids of its pairs (``step.embed.pairs``),
+        the encoder with the readout (``step.embed.encoder``), then the
+        scorer.  In training the whole batch's pairs at once, with dropout
+        from ``self.generator``; at eval ``EVAL_PAIRS`` pairs at a time."""
+        B, E = wire.ev_end.shape
+        rows = B if train else max(1, EVAL_PAIRS // (E - 1))
+        pos, neg = [], []
+        for r0 in range(0, B, rows):
+            part = wire if rows >= B else type(wire)(
+                *(f[r0:r0 + rows] for f in wire))
+            with span("step.embed.pairs"):
+                tokens = pair_tokens(self.model, part, self.node_feats,
+                                     self.feats)
+            with span("step.embed.encoder"):
+                h_u, h_v = encode_pairs(self.model, tokens, train,
+                                        self.generator if train else None)
+            p, n = split_logits(self.model.pred(h_u, h_v),
+                                part.ev_end.shape[0])
+            pos.append(p)
+            neg.append(n)
+        if len(pos) == 1:
+            return pos[0], neg[0]
+        return torch.cat(pos), torch.cat(neg)
 
     @staticmethod
     @torch.no_grad()
@@ -640,7 +722,10 @@ class Engine:
         (``_train_step``) and ``step.advance``; and ``gather_launches``,
         the launches of the memory-row gather's backward kernel
         (``ops/gather.py``: one a gather, two a memory step on CUDA, none
-        on the CPU)."""
+        on the CPU).  DyGFormer's trace adds ``pairs``, the encoder
+        passes of the epoch (padded pairs included), and
+        ``history_filled``, the share of the real ends' history places
+        that held an interaction."""
         self.packer.reset_cache()
         if self.device_cache:
             self.sstate = reset_stream_cache(self.sstate)
@@ -648,7 +733,7 @@ class Engine:
             # memory and cache reset together (pyg_epoch_utils.py:11-16)
             self.mem_state = self._fresh_memory_state()
         acc = torch.zeros(4, dtype=torch.float32, device=self.device)
-        total = nb = 0
+        total = nb = pairs = filled = places = 0
         timers = SectionTimers()
         launches0 = gather.launches()
         t0 = time.perf_counter()
@@ -661,6 +746,12 @@ class Engine:
                     nxt = next(wires, None)
                     if nxt is not None:
                         (lo, hi), (wire, iw) = nxt
+                        if self.pairs:
+                            n_ends = wire.hist_len[:hi - lo]
+                            pairs += (wire.ev_end.shape[0]
+                                      * (wire.ev_end.shape[1] - 1))
+                            filled += int(n_ends.sum())
+                            places += n_ends.size * wire.hist_nid.shape[2]
                         with span("feed.copy"):
                             wire = wire_to_device(wire, self.device)
                 if nxt is None:
@@ -680,6 +771,9 @@ class Engine:
                                  **_trace_keys(timers), "batches": nb,
                                  "gather_launches":
                                      gather.launches() - launches0}
+        if self.pairs:
+            self.last_epoch_trace.update(
+                pairs=pairs, history_filled=filled / max(places, 1))
         n = max(float(vals[3]), 1.0)
         return {"loss": float(vals[0]), "ap": float(vals[1] / n),
                 "auc": float(vals[2] / n), "events": total}
@@ -701,14 +795,7 @@ class Engine:
         engine/train.py:623-643).  ``neg_mask`` (B, Mc) marks the real
         negative columns in pad+mask mode, else None."""
         pos, neg = arch_predict(self.model, embed, pack)
-        neg2 = neg if neg.dim() == 2 else neg[:, None]
-        p = pos[:, None]
-        gt = neg2 > p
-        ge = neg2 >= p
-        if neg_mask is not None:
-            gt = gt & neg_mask
-            ge = ge & neg_mask
-        return opt + gt.sum(dim=1), pes + ge.sum(dim=1)
+        return _rank_counts(pos, neg, opt, pes, neg_mask)
 
     # ------------------------------------------- slot-unique eval: the gate
     def _log_eval_gate(self, reason: str) -> None:
@@ -730,6 +817,8 @@ class Engine:
         cap = self.config.train.max_intra_block
         t = self.data.t
         for ok, reason in (
+                # a pair's score has no root slot to share
+                (not self.pairs, PAIR_GATE),
                 # the eval-lean dedup wire holds the cache's in-edges, not
                 # the t-CSR's draws
                 (not self.uniform, UNIFORM_GATE),
@@ -968,22 +1057,30 @@ class Engine:
             with span("step.expand"):
                 pack = (self._expand_lean(wire, iw, eval_mode=True)
                         if self.device_cache else self._expand(wire, iw))
-            mem_rows = lu_rows = None
-            if self.use_memory:
-                # applied mail is cleared by the commit, so applying and
-                # committing on every chunk is idempotent; only the last
-                # chunk carries a write plan
-                mem_rows, lu_rows = self._apply_mail(pack)
-            with span("step.embed"):
-                embed = self._embed(pack, mem_rows, lu_rows, train=False)
-            if self.use_memory:
-                self._commit(pack, mem_rows, lu_rows, embed)
-            if last and self.device_cache:
-                with span("step.advance"):
-                    self._advance(wire, eval_mode=True)
+            if self.pairs:
+                with span("step.embed"):
+                    pos, neg = self._score_pairs(pack, train=False)
+            else:
+                mem_rows = lu_rows = None
+                if self.use_memory:
+                    # applied mail is cleared by the commit, so applying
+                    # and committing on every chunk is idempotent; only the
+                    # last chunk carries a write plan
+                    mem_rows, lu_rows = self._apply_mail(pack)
+                with span("step.embed"):
+                    embed = self._embed(pack, mem_rows, lu_rows,
+                                        train=False)
+                if self.use_memory:
+                    self._commit(pack, mem_rows, lu_rows, embed)
+                if last and self.device_cache:
+                    with span("step.advance"):
+                        self._advance(wire, eval_mode=True)
             with span("step.score"):
-                counts["opt"], counts["pes"] = self._score_counts(
-                    embed, pack, counts["opt"], counts["pes"], mask_c)
+                counts["opt"], counts["pes"] = (
+                    _rank_counts(pos, neg, counts["opt"], counts["pes"],
+                                 mask_c) if self.pairs else
+                    self._score_counts(embed, pack, counts["opt"],
+                                       counts["pes"], mask_c))
                 if last:
                     acc = self._finalize(acc, counts["opt"], counts["pes"],
                                          ar < (hi - lo))
@@ -1040,6 +1137,9 @@ class Engine:
         table loaded from a checkpoint, which warming made, stays as it
         is."""
         d = self.data
+        if self.pairs:
+            # a history wire's shapes are the batch's: nothing to seed
+            return
         if self.uniform:
             # the engine's t-CSR (read only) and a same-seed rng of the
             # probe's own: it replays the first epoch's draws and leaves
@@ -1322,6 +1422,20 @@ def _trace_keys(timers: SectionTimers) -> Dict[str, object]:
             "fetch_s": timers.seconds("feed.fetch"),
             "copy_s": timers.seconds("feed.copy"),
             "spans": timers.summary()}
+
+
+def _rank_counts(pos, neg, opt, pes, neg_mask):
+    """``opt`` / ``pes`` plus each event's negatives scored above / at or
+    above its positive; ``neg_mask`` (B, Mc) marks the real negative
+    columns in pad+mask mode, else None."""
+    neg2 = neg if neg.dim() == 2 else neg[:, None]
+    p = pos[:, None]
+    gt = neg2 > p
+    ge = neg2 >= p
+    if neg_mask is not None:
+        gt = gt & neg_mask
+        ge = ge & neg_mask
+    return opt + gt.sum(dim=1), pes + ge.sum(dim=1)
 
 
 def _clone_state(state):

@@ -12,6 +12,12 @@ tgb_tgn_dgl_tpu/models/factory.py.
                                 EAGER mail memory, whose messages may hold
                                 the event partner's embedding
                                 (models/variants.py).
+  arch 'dygformer'              DyGFormer: a Transformer over each scored
+                                pair's first-hop histories
+                                (models/dygformer.py); no memory.  It
+                                scores pairs, not root slots, so
+                                ``arch_embed`` / ``arch_predict`` do not
+                                apply: the engine runs its own pair path.
 
 ``init_arch`` builds the model; the engine adds its ``memory`` submodule
 and composes ``arch_embed`` / ``arch_predict`` with the memory protocol.
@@ -25,13 +31,16 @@ from torch import nn
 from torch.nn.functional import embedding
 
 from ..data.packer import KIND_SELF
+from .dygformer import DyGFormer, DyGFormerConfig
 from .init import linear_default
 from .tgnn import EdgePredictor, TGNNConfig, init_tgnn, tgnn_embed
 from .variants import TimeEmbedding
 
-ARCHS = ("transformer_attention", "identity", "dyrep")
+ARCHS = ("transformer_attention", "identity", "dyrep", "dygformer")
 # the archs whose embedding is TGNN's attention
 ATTENTION_ARCHS = ("transformer_attention", "dyrep")
+# the archs that score pairs from per-event histories
+PAIR_ARCHS = ("dygformer",)
 
 
 class Jodie(nn.Module):
@@ -48,9 +57,13 @@ class Jodie(nn.Module):
 
 
 def init_arch(cfg: TGNNConfig, arch: str,
-              generator: Optional[torch.Generator] = None) -> nn.Module:
+              generator: Optional[torch.Generator] = None,
+              pair_cfg: Optional[DyGFormerConfig] = None) -> nn.Module:
     """The model of ``arch`` on the CPU, its leaves drawn from
-    ``generator`` (models/init.py gives the order)."""
+    ``generator`` (models/init.py gives the order); a pair arch takes its
+    sizes from ``pair_cfg``."""
+    if arch in PAIR_ARCHS:
+        return DyGFormer(pair_cfg, generator)
     if arch in ATTENTION_ARCHS:
         return init_tgnn(cfg, generator)
     if arch == "identity":

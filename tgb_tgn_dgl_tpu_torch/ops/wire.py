@@ -23,6 +23,11 @@ unchanged.  Three formats, as in the JAX package:
     too (``train_lean_dedup``): it carries the pre-batch clock rows of its
     unique table, and the device replays the batch's clock writes.
 
+DyGFormer (``gnn.arch: dygformer``) ships a fourth wire, the
+``HistoryWire`` of the packer's per-event history mode: each event's
+ends with their latest interactions earlier in the stream.  Its fields
+are what the model reads, so it needs no expansion.
+
 Host side (numpy): ``stack_wires``, ``pack_to_wire`` (a full Pack to a
 WirePack: the 'uniform' strategy's numpy pack), ``compact_wire``,
 ``nb_bucket_of``,
@@ -167,6 +172,20 @@ class DedupWire(NamedTuple):
     # --- train-lean extension (train_lean_dedup); blk_max then holds
     # zeros of the block bucket's width
     clock0: Optional[Array] = None      # (Ub,) f32 pre-batch clock rows
+
+
+class HistoryWire(NamedTuple):
+    """Per-event histories (``pack_history`` of data/native_packer.py):
+    for each of B events (rows past the batch are padding) its E = 2 + M
+    ends, src, dst and its M negatives, each with its K latest
+    interactions earlier in the stream, oldest first."""
+
+    ev_end: Array         # (B, E) i32 node of each end (0 on padding rows)
+    ev_valid: Array       # (B,) bool
+    hist_nid: Array       # (B, E, K) i32 other end; -1 past hist_len
+    hist_eid: Array       # (B, E, K) i32 edge row; -1 past hist_len
+    hist_dt: Array        # (B, E, K) f32 t_event - t_edge; 0 past hist_len
+    hist_len: Array       # (B, E) i32 interactions held, <= K
 
 
 def stack_wires(wires):

@@ -35,7 +35,8 @@ takes the same early-stop decision.  A checkpoint is one file by rank 0,
 the gathered full state in the serial Engine's layout plus every dp
 index's dropout generator; each rank loads its shard.
 
-Refused (ValueError): arch 'dyrep' (its eager state is not sharded, as in
+Refused (ValueError): arch 'dygformer' (pairs, not root slots); arch
+'dyrep' (its eager state is not sharded, as in
 JAX), ``gnn.layer`` > 1 (JAX builds one layer whatever the config says;
 layer-2 rslot reads would need a gather between layers),
 ``train.device_cache`` and ``train.wire_train_lean`` (the JAX sharded
@@ -75,6 +76,10 @@ def check_sharded(config: FrameworkConfig, dp: int) -> None:
         raise ValueError("ShardedEngine does not support arch='dyrep' (its "
                          "eager mail state is not sharded); use Engine or "
                          "MultiHostEngine for DyRep")
+    if g.arch == "dygformer":
+        raise ValueError("ShardedEngine does not support arch='dygformer' "
+                         "(it shards root-slot grids, and DyGFormer scores "
+                         "pairs from per-event histories); use Engine")
     if g.layer != 1:
         raise ValueError(f"ShardedEngine runs one attention layer, not "
                          f"gnn.layer={g.layer}")

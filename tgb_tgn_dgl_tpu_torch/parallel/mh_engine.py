@@ -93,6 +93,11 @@ class MultiHostEngine(Engine):
 
     def __init__(self, data, config: FrameworkConfig, n_hosts: int,
                  exchange: str = "replicated", device=None):
+        if config.gnn.arch == "dygformer":
+            raise ValueError("MultiHostEngine does not support "
+                             "arch='dygformer' (it composes root-slot wires, "
+                             "and DyGFormer scores pairs from per-event "
+                             "histories); use Engine")
         if n_hosts < 1:
             raise ValueError(f"n_hosts must be >= 1, got {n_hosts}")
         if exchange not in EXCHANGES:

@@ -3,7 +3,9 @@
 The port's copy of tgb_tgn_dgl_tpu/utils/config.py.  It keeps the schema
 fields (so the same ``configs/TGN.yml``, ``configs/TGN-memory.yml``,
 ``configs/TGN-2layer.yml``, ``configs/JODIE.yml`` and ``configs/DyRep.yml``
-parse in both packages) and the train knobs the port reads, among them
+parse in both packages; the port's ``configs/DyGFormer.yml`` sets the
+``gnn`` keys of DyGFormer, which the JAX package does not run,
+``PORT_ONLY_GNN_KEYS``) and the train knobs the port reads, among them
 the JAX package's two transports that keep stream state on the device,
 with its defaults (off): ``train.device_cache`` (the neighbor cache and
 clocks on the card, the lean wire; ops/lean_wire.py) and
@@ -89,6 +91,20 @@ class GnnConfig:
     # Reference hardcodes 0.6 ignoring config (model_utils.py:664-666);
     # train.dropout/att_dropout are honored.  Set this to override both.
     override_dropout: Optional[float] = None
+    # DyGFormer (gnn.arch 'dygformer', models/dygformer.py): the node
+    # feature width (DyGLib pads every stream's features to 172), the
+    # channel width C, the tokens a patch and the tokens of an end's
+    # sequence L (the end and its L - 1 latest interactions); dim_time is
+    # its time encoding's width, layer and att_head its encoder's
+    node_feat_dim: int = 172
+    channel_embedding_dim: int = 50
+    patch_size: int = 1
+    max_input_sequence_length: int = 32
+
+
+# the gnn keys the port has and the JAX package has not: DyGFormer's
+PORT_ONLY_GNN_KEYS = ("node_feat_dim", "channel_embedding_dim", "patch_size",
+                      "max_input_sequence_length")
 
 
 @dataclass
